@@ -1,0 +1,173 @@
+"""Groth16 prover on one torch device: QAP witness map and five MSMs on the
+device, unblinding and the final combine on the host.
+
+Port of blockmaze_tpu/groth16/prover.py (`Prover.__init__` and `prove`;
+r1cs_gg_ppzksnark.tcc:391-506):
+
+  H       = qap_witness_map(cs, primary, aux)                 [NTT pipeline]
+  At      = <A_query, (1, wires)>                             [MSM G1]
+  Bt, Bt1 = <B_query sparse, (1, wires)>                      [MSM G2, G1]
+  Ht      = <H_query, H[0..m-2]>                              [MSM G1]
+  Lt      = <L_query, wires[num_inputs+1..]>                  [MSM G1]
+  A = alpha + At + r*delta,  B = beta + Bt + s*delta,
+  C = Ht + Lt + s*A + r*B1 - r*s*delta
+
+r and s are drawn per proof from `secrets` unless given; each proof also
+draws fresh MSM blinds (msm/pippenger.py), so the proof for a given (r, s)
+is the same whatever the blinds.
+"""
+
+from __future__ import annotations
+
+import secrets
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from blockmaze_tpu.curves import host_curve as HC
+from blockmaze_tpu.fields.constants import R_MOD
+from blockmaze_tpu.serialization.libsnark_io import Proof
+from ..curves import tcurve as tc
+from ..fields import tfield as tf
+from ..msm import pippenger as pp
+from ..ntt import pntt, tntt
+from . import keys as K
+from . import qap
+
+FR = tf.FR
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << (n - 1).bit_length()
+
+
+def _pad_points(t, n: int):
+    """Pad affine points with infinity rows to n (one MSM shape per size)."""
+    x, y, inf = t
+    k = n - x.shape[0]
+    if k <= 0:
+        return t
+    return (torch.cat([x, x.new_zeros((k,) + x.shape[1:])]),
+            torch.cat([y, y.new_zeros((k,) + y.shape[1:])]),
+            torch.cat([inf, inf.new_ones(k)]))
+
+
+def _pad_scalars(s, n: int):
+    k = n - s.shape[0]
+    if k <= 0:
+        return s
+    return torch.cat([s, s.new_zeros((k, s.shape[1]))])
+
+
+class Prover:
+    """Device-resident proving key of one circuit.
+
+    dpk is a DevicePK of this package or of the JAX package (same fields);
+    device is where every tensor lives ("cuda:0" runs the kernels, "cpu"
+    their plain versions). lanes is the MSM accumulation width, window the
+    Pippenger window c."""
+
+    def __init__(self, dpk, device, lanes: Optional[int] = None,
+                 window: Optional[int] = None):
+        self.device = torch.device(device)
+        self.dpk = dpk
+        self.domain = dpk.domain
+        cuda = self.device.type == "cuda"
+        self.lanes = lanes or (32768 if cuda else 64)
+        self.window = window or pp.default_window(dpk.num_variables)
+        dk = K.to_device(dpk, self.device)
+        m = self.domain.m
+        self.nA = _next_pow2(dpk.num_variables + 1)
+        self.A = _pad_points(dk.A, self.nA)
+        self.nB = _next_pow2(len(dpk.B_idx))
+        self.B2 = _pad_points(dk.B2, self.nB)
+        self.B1 = _pad_points(dk.B1, self.nB)
+        self.nH = _next_pow2(m - 1)
+        self.H = _pad_points(tuple(v[:m - 1] for v in dk.H), self.nH)
+        self.nL = _next_pow2(len(dpk.L[2]))
+        self.L = _pad_points(dk.L, self.nL)
+        self.B_idx = dk.B_idx
+        self.coos = dk.coos
+        self.tables = tntt.tables_to(tntt.qap_tables(self.domain),
+                                     self.device)
+        one = np.zeros((1, tf.N), np.uint32)
+        one[0, 0] = 1
+        self._one = tf.to_tensor(one, self.device)
+        self.timings = {}
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _lap(self, label, t0):
+        self._sync()
+        t = time.perf_counter()
+        self.timings[label] = t - t0
+        return t
+
+    def _msm(self, curve, pts, scalars, n, blind):
+        return pp.msm(curve, pts, _pad_scalars(scalars, n), self.window,
+                      self.lanes, blind=blind)
+
+    def prove(self, primary: List[int], aux: List[int],
+              r: Optional[int] = None, s: Optional[int] = None) -> Proof:
+        dpk = self.dpk
+        if len(primary) != dpk.primary_input_size:
+            raise ValueError(f"primary input has {len(primary)} values, the "
+                             f"key wants {dpk.primary_input_size}")
+        if len(aux) != dpk.aux_input_size:
+            raise ValueError(f"auxiliary input has {len(aux)} values, the "
+                             f"key wants {dpk.aux_input_size}")
+        r = secrets.randbelow(R_MOD) if r is None else r
+        s = secrets.randbelow(R_MOD) if s is None else s
+        self.timings = {}
+        t0 = time.perf_counter()
+
+        wires = [1] + list(primary) + list(aux)
+        wires_mont = tf.to_tensor(tf.to_mont_host(FR, wires), self.device)
+        wires_std = tf.to_tensor(tf.ints_to_limbs(wires), self.device)
+        R1, b1 = pp.make_blind("g1", self.device)
+        R2, b2 = pp.make_blind("g2", self.device)
+        t0 = self._lap("wires", t0)
+
+        H_mont = qap.qap_h_arrays(
+            self.domain, (dpk.num_constraints, dpk.primary_input_size),
+            self.coos, wires_mont, self.tables)
+        H_std = pntt.mul_elementwise(
+            H_mont[:self.domain.m - 1].contiguous(), self._one)
+        t0 = self._lap("qap", t0)
+
+        At = self._msm("g1", self.A, wires_std, self.nA, b1)
+        b_scalars = wires_std.index_select(0, self.B_idx)
+        Bt2 = self._msm("g2", self.B2, b_scalars, self.nB, b2)
+        Bt1 = self._msm("g1", self.B1, b_scalars, self.nB, b1)
+        Ht = self._msm("g1", self.H, H_std, self.nH, b1)
+        Lt = self._msm("g1", self.L, wires_std[dpk.primary_input_size + 1:],
+                       self.nL, b1)
+        t0 = self._lap("msm", t0)
+
+        c = self.window
+
+        def g1(res):
+            pt = tc.g1_jacobian_to_host(tuple(v[None] for v in res[:3]))[0]
+            return pp.unblind_msm("g1", pt, res[3].cpu().numpy(), R1, c)
+
+        At_h, Bt1_h, Ht_h, Lt_h = g1(At), g1(Bt1), g1(Ht), g1(Lt)
+        Bt2_h = pp.unblind_msm(
+            "g2", tc.g2_jacobian_to_host(tuple(v[None] for v in Bt2[:3]))[0],
+            Bt2[3].cpu().numpy(), R2, c)
+
+        g1_A = HC.g1_add(HC.g1_add(dpk.alpha_g1, At_h),
+                         HC.g1_mul(dpk.delta_g1, r))
+        g1_B = HC.g1_add(HC.g1_add(dpk.beta_g1, Bt1_h),
+                         HC.g1_mul(dpk.delta_g1, s))
+        g2_B = HC.g2_add(HC.g2_add(dpk.beta_g2, Bt2_h),
+                         HC.g2_mul(dpk.delta_g2, s))
+        g1_C = HC.g1_add(
+            HC.g1_add(HC.g1_add(Ht_h, Lt_h), HC.g1_mul(g1_A, s)),
+            HC.g1_add(HC.g1_mul(g1_B, r),
+                      HC.g1_neg(HC.g1_mul(dpk.delta_g1, r * s % R_MOD))))
+        self._lap("combine", t0)
+        return Proof(a=g1_A, b=g2_B, c=g1_C)

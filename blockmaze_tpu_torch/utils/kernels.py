@@ -1,0 +1,215 @@
+"""Build, load and launch the package's CUDA kernels.
+
+The sources in blockmaze_tpu_torch/csrc are compiled at first use with
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC
+into blockmaze_tpu_torch/_build/ (one shared library with a plain C
+interface, named by a hash of the sources, so an edit rebuilds; one nvcc
+process per .cu file), and loaded with ctypes. Every entry point takes int32/uint8 device pointers and the
+current stream, launches, and returns cudaGetLastError(); a nonzero code
+raises. A failed build or load raises too: there is no fallback.
+
+Each kernel has a `Kernel` object whose `launches` count goes up by one
+each time its wrapper launches it, so a run can show which kernels it went
+through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+
+import torch
+
+PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(PKG, "csrc")
+BUILD = os.path.join(PKG, "_build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_LL = ctypes.c_longlong
+_I = ctypes.c_int
+
+# Curve codes of the C entry points.
+CURVE_ID = {"g1": 1, "g2": 2}
+
+# C entry points and their argument types (csrc/*.cu).
+SIGNATURES = {
+    "bm_butterfly_stage": [_P, _P, _P, _LL, _LL, _P],
+    "bm_mul_elementwise": [_P, _P, _P, _LL, _I, _P],
+    "bm_point_add": [_I] + [_P] * 9 + [_LL, _P],
+    "bm_point_double": [_I] + [_P] * 6 + [_LL, _P],
+    "bm_point_mixed_add": [_I, _I] + [_P] * 9 + [_LL, _P],
+    "bm_msm_accumulate": [_I, _I] + [_P] * 7 + [_I, _LL, _LL] + [_P] * 11
+                         + [_P],
+    "bm_msm_fold": [_I, _P, _P, _P, _I, _I, _P, _P, _P, _P],
+}
+
+
+class BuildError(RuntimeError):
+    pass
+
+
+def _sources():
+    return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                  if f.endswith((".cu", ".cuh")))
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise BuildError("nvcc not found (set CUDA_HOME)")
+    return found
+
+
+def build(verbose: bool = False) -> str:
+    """Compile csrc/*.cu into _build/ if that exact source set has not been
+    built yet; return the library path. The .cu files compile in parallel
+    nvcc processes and link into one shared library."""
+    srcs = _sources()
+    h = hashlib.sha256()
+    for s in srcs:
+        with open(s, "rb") as f:
+            h.update(os.path.basename(s).encode() + b"\0" + f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    lib = os.path.join(BUILD, f"libbmkernels_{h.hexdigest()[:16]}.so")
+    if os.path.exists(lib):
+        return lib
+    os.makedirs(BUILD, exist_ok=True)
+    nvcc = _nvcc()
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
+        procs = []
+        for src in (s for s in srcs if s.endswith(".cu")):
+            obj = os.path.join(tmp, os.path.basename(src) + ".o")
+            cmd = [nvcc, *compile_flags, *(["-Xptxas", "-v"] if verbose
+                                           else []), "-c", src, "-o", obj]
+            procs.append((obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        objs, errors = [], []
+        for obj, proc in procs:
+            out, _ = proc.communicate()
+            if verbose:
+                print(out, flush=True)
+            if proc.returncode != 0:
+                errors.append(out)
+            objs.append(obj)
+        if errors:
+            raise BuildError("nvcc failed:\n" + "\n".join(errors))
+        out_tmp = os.path.join(tmp, "lib.so")
+        res = subprocess.run([nvcc, *NVCC_FLAGS, "-o", out_tmp, *objs],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise BuildError(f"nvcc link failed:\n{res.stderr}")
+        os.replace(out_tmp, lib)
+    return lib
+
+
+class _Lib:
+    def __init__(self):
+        self._lib = None
+
+    def get(self):
+        if self._lib is None:
+            lib = ctypes.CDLL(build())
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            self._lib = lib
+        return self._lib
+
+
+LIB = _Lib()
+
+
+class Kernel:
+    """One hand-written kernel: its C entry point and its launch count."""
+
+    def __init__(self, name: str, entry: str, source: str, replaces: str):
+        self.name = name
+        self.entry = entry
+        self.source = source
+        self.replaces = replaces
+        self.launches = 0
+
+    def __call__(self, *args):
+        """Launch on the current stream; tensor arguments pass as their
+        device pointers."""
+        fn = getattr(LIB.get(), self.entry)
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
+                  for a in args), stream)
+        if rc != 0:
+            raise RuntimeError(f"{self.name}: CUDA launch failed with error "
+                               f"{rc}")
+        self.launches += 1
+
+
+def check_cuda(name: str, *tensors):
+    """Validate what a kernel takes: CUDA, contiguous, int32 (or uint8)."""
+    for t in tensors:
+        if not t.is_cuda:
+            raise ValueError(f"{name}: expected CUDA tensors, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: expected contiguous tensors")
+        if t.dtype not in (torch.int32, torch.uint8):
+            raise ValueError(f"{name}: expected int32/uint8, got {t.dtype}")
+
+
+def on_cpu(*tensors) -> bool:
+    """True if every tensor lies on the CPU (the plain version's domain);
+    False if every one is on CUDA; raises on anything else."""
+    devs = {t.device.type for t in tensors}
+    if devs == {"cpu"}:
+        return True
+    if devs == {"cuda"}:
+        return False
+    raise ValueError(f"tensors on unsupported/mixed devices: {devs}")
+
+
+K = {
+    "butterfly": Kernel("butterfly", "bm_butterfly_stage",
+                        "blockmaze_tpu_torch/csrc/pntt.cu",
+                        "blockmaze_tpu/ntt/pntt.py:30"),
+    "mul_elementwise": Kernel("mul_elementwise", "bm_mul_elementwise",
+                              "blockmaze_tpu_torch/csrc/pntt.cu",
+                              "blockmaze_tpu/ntt/pntt.py:61"),
+    "add": Kernel("add", "bm_point_add",
+                  "blockmaze_tpu_torch/csrc/pcurve.cu",
+                  "blockmaze_tpu/curves/pcurve.py:129"),
+    "double": Kernel("double", "bm_point_double",
+                     "blockmaze_tpu_torch/csrc/pcurve.cu",
+                     "blockmaze_tpu/curves/pcurve.py:141"),
+    "msm_round": Kernel("msm_round", "bm_msm_accumulate",
+                        "blockmaze_tpu_torch/csrc/pippenger.cu",
+                        "blockmaze_tpu/msm/pippenger.py:193"),
+    "msm_fold": Kernel("msm_fold", "bm_msm_fold",
+                       "blockmaze_tpu_torch/csrc/pippenger.cu",
+                       "blockmaze_tpu/msm/pippenger.py:288"),
+    "mixed_add": Kernel("mixed_add", "bm_point_mixed_add",
+                        "blockmaze_tpu_torch/csrc/pcurve.cu",
+                        "blockmaze_tpu/curves/pcurve.py:102"),
+    "mixed_add_noexc": Kernel("mixed_add_noexc", "bm_point_mixed_add",
+                              "blockmaze_tpu_torch/csrc/pcurve.cu",
+                              "blockmaze_tpu/curves/pcurve.py:115"),
+}
+
+
+def reset_counts():
+    for k in K.values():
+        k.launches = 0
+
+
+def counts() -> dict:
+    return {name: k.launches for name, k in K.items()}
