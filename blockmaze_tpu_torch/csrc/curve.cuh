@@ -23,6 +23,13 @@ struct Jac {
   F X, Y, Z;
 };
 
+// Infinity as the plain versions build it (tcurve zeros: X = 0, Y = 1,
+// Z = 0), so that padded slots carry the same bits in both.
+template <class F>
+__device__ __forceinline__ Jac<F> infinity() {
+  return Jac<F>{F::zero(), F::one(), F::zero()};
+}
+
 template <class F>
 __device__ __forceinline__ Jac<F> load_jac(const int32_t* x, const int32_t* y,
                                            const int32_t* z, long long i) {

@@ -1,10 +1,8 @@
-// Pippenger bucket accumulation over the sorted item stream, and the
-// Horner fold of the window sums.
+// Pippenger bucket accumulation over the sorted item stream.
 //
 // Replaces: blockmaze_tpu/msm/pippenger.py `_round_kernel` (one round of
 // K items per lane, launched `rounds` times, each launch followed by an XLA
-// scatter of the flushed buckets) and `_fold_kernel` (res = sum_w
-// 2^{c*w} * win_w with c doublings and one add per window).
+// scatter of the flushed buckets).
 //
 // What bounds the accumulation on this card: one mixed add per stream item
 // (~11 Fq products in G1, ~33 in G2) plus a random 132/260-byte gather of
@@ -23,10 +21,6 @@
 // head_key, seen), the head run's partial sum, and the flushed bucket rows
 // with blind count 1. Keys and point ids arrive transposed to (L, T) so
 // that neighbouring threads read neighbouring words.
-//
-// The fold is one thread: W*(c+1) dependent point operations, about 2 ms in
-// G1 and 8-10 ms in G2 on an H100 at W = 22, c = 12 (a tenth of a G1 MSM,
-// a quarter of a G2 one); parallelising it is left for later work.
 
 #include <cuda_runtime.h>
 
@@ -82,19 +76,6 @@ __global__ void accumulate_kernel(
   meta[2 * T + t] = seen;
 }
 
-template <class F>
-__global__ void fold_kernel(const int32_t* wx, const int32_t* wy,
-                            const int32_t* wz, int n_windows, int c,
-                            int32_t* ox, int32_t* oy, int32_t* oz) {
-  if (blockIdx.x != 0 || threadIdx.x != 0) return;
-  Jac<F> res = load_jac<F>(wx, wy, wz, n_windows - 1);
-  for (int w = n_windows - 2; w >= 0; --w) {
-    for (int k = 0; k < c; ++k) res = dbl(res);
-    res = add(res, load_jac<F>(wx, wy, wz, w));
-  }
-  store_jac(ox, oy, oz, 0, res);
-}
-
 }  // namespace
 
 // curve: 1 = G1, 2 = G2. keys/pids: (L, T) int32; px/py: (n, 16|32) int32;
@@ -128,21 +109,5 @@ extern "C" int bm_msm_accumulate(
   else
     accumulate_kernel<Fq2, false><<<g, THREADS, 0, s>>>(BM_ACC_ARGS);
 #undef BM_ACC_ARGS
-  return (int)cudaGetLastError();
-}
-
-// win: (W, ...) Jacobian window sums; out: one point.
-extern "C" int bm_msm_fold(int curve, const void* wx, const void* wy,
-                           const void* wz, int n_windows, int c, void* ox,
-                           void* oy, void* oz, void* stream) {
-  auto s = (cudaStream_t)stream;
-  auto i = [](const void* p) { return (const int32_t*)p; };
-  if (curve == 1)
-    fold_kernel<Fq><<<1, 1, 0, s>>>(i(wx), i(wy), i(wz), n_windows, c,
-                                    (int32_t*)ox, (int32_t*)oy, (int32_t*)oz);
-  else
-    fold_kernel<Fq2><<<1, 1, 0, s>>>(i(wx), i(wy), i(wz), n_windows, c,
-                                     (int32_t*)ox, (int32_t*)oy,
-                                     (int32_t*)oz);
   return (int)cudaGetLastError();
 }

@@ -17,9 +17,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from blockmaze_tpu.fields import host as hf
-from blockmaze_tpu.fields.constants import Q_MOD
+from ..fields import host as hf
 from ..fields import tfield as tf
+from ..fields.constants import Q_MOD
 
 FQ = tf.FQ
 

@@ -26,7 +26,7 @@ from functools import cached_property
 import numpy as np
 import torch
 
-from blockmaze_tpu.fields import constants as C
+from . import constants as C
 
 N = C.N_LIMBS          # 16
 W = C.LIMB_BITS        # 16

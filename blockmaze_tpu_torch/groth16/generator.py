@@ -18,17 +18,17 @@ from typing import Dict, List
 
 import torch
 
-from blockmaze_tpu.curves import host_curve as HC
-from blockmaze_tpu.curves import pairing as PR
-from blockmaze_tpu.fields.constants import R_MOD
-from blockmaze_tpu.ntt import domain as D
-from blockmaze_tpu.r1cs.protoboard import Protoboard
-from blockmaze_tpu.serialization import libsnark_io as io
+from ..curves import host_curve as HC
+from ..curves import pairing as PR
 from ..curves import pcurve as pc
 from ..curves import tcurve as tc
 from ..fields import tfield as tf
+from ..fields.constants import R_MOD
 from ..msm import pippenger as pp
+from ..ntt import domain as D
 from ..ntt.tntt import batch_modinv
+from ..r1cs.protoboard import Protoboard
+from ..serialization import libsnark_io as io
 from . import keys as K
 
 WINDOW_C = 8
@@ -189,9 +189,11 @@ def jacobian_to_affine_host(curve: str, P) -> list:
 # Generator (generator.py:211-321)
 # ---------------------------------------------------------------------------
 
-def generate(pb: Protoboard, device, rng=None, chunk: int = 1 << 18):
-    """Trusted setup over a synthesised circuit, exponentiations on
-    `device`. Returns (io.ProvingKey, io.VerificationKey) with host affine
+def generate(pb: Protoboard, device="cuda", rng=None,
+             chunk: int = 1 << 18):
+    """Trusted setup over a synthesised circuit (this package's Protoboard
+    or any object with its constraints, primary_input_size and
+    num_variables), exponentiations on `device`. Returns (io.ProvingKey, io.VerificationKey) with host affine
     points. rng() draws the toxic waste (default: `secrets`); the
     exponentiation blinds always come from `secrets` and do not change the
     keys."""
@@ -286,8 +288,8 @@ def generate(pb: Protoboard, device, rng=None, chunk: int = 1 << 18):
     return pk, vk
 
 
-def generate_cached(pb: Protoboard, device, name: str, seed: int,
-                    cache_dir: str):
+def generate_cached(pb: Protoboard, name: str, seed: int, cache_dir: str,
+                    device="cuda"):
     """Keys for circuit `name` with toxic waste from random.Random(seed),
     cached in cache_dir as the v1 npz DevicePK plus the libsnark-format vk
     (<name>_s<seed>.v1.npz, <name>_s<seed>_vk.txt). Generates and writes

@@ -15,10 +15,10 @@ import dataclasses
 import numpy as np
 import torch
 
-from blockmaze_tpu.ntt import domain as D
-from blockmaze_tpu.serialization import libsnark_io as io
 from ..curves import tcurve as tc
 from ..fields import tfield as tf
+from ..ntt import domain as D
+from ..serialization import libsnark_io as io
 
 CACHE_VERSION = 1
 

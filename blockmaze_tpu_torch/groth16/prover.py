@@ -26,13 +26,13 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from blockmaze_tpu.curves import host_curve as HC
-from blockmaze_tpu.fields.constants import R_MOD
-from blockmaze_tpu.serialization.libsnark_io import Proof
+from ..curves import host_curve as HC
 from ..curves import tcurve as tc
 from ..fields import tfield as tf
+from ..fields.constants import R_MOD
 from ..msm import pippenger as pp
 from ..ntt import pntt, tntt
+from ..serialization.libsnark_io import Proof
 from . import keys as K
 from . import qap
 
@@ -65,11 +65,11 @@ class Prover:
     """Device-resident proving key of one circuit.
 
     dpk is a DevicePK of this package or of the JAX package (same fields);
-    device is where every tensor lives ("cuda:0" runs the kernels, "cpu"
-    their plain versions). lanes is the MSM accumulation width, window the
-    Pippenger window c."""
+    device is where every tensor lives: the card by default, where the
+    kernels run; "cpu" runs their plain versions. lanes is the MSM
+    accumulation width, window the Pippenger window c."""
 
-    def __init__(self, dpk, device, lanes: Optional[int] = None,
+    def __init__(self, dpk, device="cuda", lanes: Optional[int] = None,
                  window: Optional[int] = None):
         self.device = torch.device(device)
         self.dpk = dpk

@@ -10,10 +10,18 @@ Port of blockmaze_tpu/msm/pippenger.py `msm` (the sort-first formulation):
      that starts and ends inside the lane straight into its bucket
      (kernel msm_round, csrc/pippenger.cu);
   3. boundary combine: each lane's head and tail partial sums, still in key
-     order, merged by a flag-based segmented Hillis-Steele scan of point
-     adds (kernel add) and written into their buckets;
-  4. per window, the weighted-pair triangle tree sum_d d*S_d (kernels add
-     and double), then the Horner fold over windows (kernel msm_fold).
+     order, reduced by key into their buckets by a segmented tree over
+     blocks of partials (kernel msm_combine, csrc/combine.cu);
+  4. per window, win = sum_d d*S_d by chunked running sums joined in a
+     weighted-pair tree (kernel msm_triangle, csrc/triangle.cu), then the
+     Horner fold over windows (kernel msm_fold, csrc/fold.cu).
+
+The JAX package runs steps 3-4 as a Hillis-Steele scan and a triangle tree
+of batched add/double launches (a TPU has no atomics and a sequential
+grid); the kernels here do the same sums in another order, so the MSM's
+Jacobian triples differ from the JAX package's while its affine result is
+the same. Each kernel's plain version follows that kernel's order exactly,
+so kernel and plain version agree bit for bit.
 
 With a blind (Rx, Ry), every run starts from R instead of infinity, the
 stream uses the exception-free mixed add, and the surplus multiples of R
@@ -29,11 +37,10 @@ import secrets
 import numpy as np
 import torch
 
-from blockmaze_tpu.curves import host_curve as HC
-from blockmaze_tpu.fields.constants import R_MOD
-from ..curves import pcurve as pc
+from ..curves import host_curve as HC
 from ..curves import tcurve as tc
 from ..fields import tfield as tf
+from ..fields.constants import R_MOD
 from ..utils import kernels as kn
 
 SCALAR_BITS = 254
@@ -178,6 +185,231 @@ def accumulate(curve, keys, pids, points, blind, T: int, L: int, drop: int):
 
 
 # ---------------------------------------------------------------------------
+# Step 3: boundary combine (kernel msm_combine)
+# ---------------------------------------------------------------------------
+
+def boundary_partials(curve, acc, meta, head):
+    """The lanes' head and tail partial sums in key order: (keys int32
+    (2T,), Jacobian points (2T, ...), blind counts int64 (2T,)). A lane
+    that never changed key gives an infinity head with its tail's key and
+    count 0, so equal keys stay contiguous."""
+    dev = meta.device
+    T = meta.shape[1]
+    cur_key = meta[0]
+    seen = meta[2] != 0
+    head_key = torch.where(seen, meta[1], cur_key)
+    head = _select(curve, seen, head, _zeros_pts(curve, T, dev))
+    keys = torch.stack([head_key, cur_key], 1).reshape(-1)
+    pts = tuple(torch.stack([h, a], 1).reshape((2 * T,) + h.shape[1:])
+                for h, a in zip(head, acc))
+    cnt = torch.stack([seen.to(torch.int64),
+                       torch.ones(T, dtype=torch.int64, device=dev)],
+                      1).reshape(-1)
+    return keys, pts, cnt
+
+
+def combine_threads(curve: str) -> int:
+    """Threads per msm_combine block (2x as many partials per block): 512
+    G1 partials (55 KB of shared memory), 256 G2 ones (52 KB)."""
+    return 256 if curve == "g1" else 128
+
+
+def _put_buckets(bkt, bcnt, drop, keys, pts, cnt):
+    live = keys < drop
+    idx = keys[live]
+    for b, p in zip(bkt, pts):
+        b[idx] = p[live].to(b.dtype)
+    bcnt[idx] = cnt[live]
+
+
+def _combine_pass_plain(curve, final, keys, pts, cnt, drop, items, bkt,
+                        bcnt):
+    """One launch of msm_combine: blocks of `items` partials, each reduced
+    by key with the segmented tree of csrc/combine.cu, in its order."""
+    F = tc.ops(curve)
+    dev = keys.device
+    n = keys.shape[0]
+    nblk = -(-n // items)
+    pad = nblk * items - n
+    tail = tc.coord_tail(curve)
+    k = torch.cat([keys.to(torch.int64),
+                   torch.full((pad,), drop, dtype=torch.int64, device=dev)]
+                  ).reshape(nblk, items)
+    P = [torch.cat([p.to(torch.int64), z.to(torch.int64)]).reshape(
+        (nblk, items) + tail) for p, z in zip(pts, _zeros_pts(curve, pad,
+                                                               dev))]
+    c = torch.cat([cnt, torch.zeros(pad, dtype=torch.int64, device=dev)]
+                  ).reshape(nblk, items)
+    rows = torch.arange(nblk, device=dev)[:, None]
+    half = 1
+    while half < items:
+        a = torch.arange(0, items, 2 * half, device=dev)
+        m = a + half
+        e = m + half - 1
+        kl, kr = k[:, m - 1], k[:, m]
+        sl, sr = k[:, a] == kl, kr == k[:, e]
+        last_l = torch.where(sl, a, m - 1)
+        L = tuple(p[rows, last_l] for p in P)
+        R = tuple(p[:, m] for p in P)
+        M = tc.point_add(F, L, R)
+        cm = c[rows, last_l] + c[:, m]
+        eq = kl == kr
+        closed = eq & ~sl & ~sr
+        _put_buckets(bkt, bcnt, drop, kl[closed], tuple(x[closed] for x in M),
+                     cm[closed])
+        left = ~eq & ~sl
+        _put_buckets(bkt, bcnt, drop, kl[left],
+                     tuple(p[:, m - 1][left] for p in P), c[:, m - 1][left])
+        right = ~eq & ~sr
+        _put_buckets(bkt, bcnt, drop, kr[right],
+                     tuple(x[right] for x in R), c[:, m][right])
+        to_a = eq & sl
+        to_e = eq & ~sl & sr
+        move = ~eq & sr
+        new_a = _select(curve, to_a, M, tuple(p[:, a] for p in P))
+        new_e = _select(curve, to_e, M,
+                        _select(curve, move, R, tuple(p[:, e] for p in P)))
+        ca = torch.where(to_a, cm, c[:, a])
+        ce = torch.where(to_e, cm, torch.where(move, c[:, m], c[:, e]))
+        for p, va, ve in zip(P, new_a, new_e):
+            p[:, a] = va
+            p[:, e] = ve
+        c[:, a] = ca
+        c[:, e] = ce
+        half *= 2
+    single = k[:, 0] == k[:, -1]
+    if final:
+        _put_buckets(bkt, bcnt, drop, k[:, 0], tuple(p[:, 0] for p in P),
+                     c[:, 0])
+        _put_buckets(bkt, bcnt, drop, k[:, -1][~single],
+                     tuple(p[:, -1][~single] for p in P), c[:, -1][~single])
+        return None
+    z = _zeros_pts(curve, nblk, dev)
+    last = _select(curve, single, z, tuple(p[:, -1] for p in P))
+    okeys = torch.stack([k[:, 0], k[:, -1]], 1).reshape(-1).to(torch.int32)
+    opts = tuple(torch.stack([p[:, 0], q], 1).reshape((2 * nblk,) + tail)
+                 .to(torch.int32) for p, q in zip(P, last))
+    ocnt = torch.stack([c[:, 0], torch.where(single, 0, c[:, -1])],
+                       1).reshape(-1)
+    return okeys, opts, ocnt
+
+
+def combine_plain(curve, keys, pts, cnt, bkt, bcnt, drop: int,
+                  threads: int):
+    """msm_combine's passes in its association order: blocks of 2*threads
+    partials while more than one block is left, then one final block.
+    Writes every run of equal keys < drop into bkt/bcnt in place. A block
+    hands two partials on, so threads >= 2 for the passes to shrink."""
+    if threads < 2:
+        raise ValueError(f"combine: threads {threads} < 2")
+    items = 2 * threads
+    while keys.shape[0] > items:
+        keys, pts, cnt = _combine_pass_plain(curve, False, keys, pts, cnt,
+                                             drop, items, bkt, bcnt)
+    _combine_pass_plain(curve, True, keys, pts, cnt, drop, items, bkt, bcnt)
+
+
+def combine(curve, keys, pts, cnt, bkt, bcnt, drop: int):
+    """Reduce the key-sorted partials (keys int32 (n,), Jacobian int32
+    points, int64 blind counts) by key into the bucket arrays bkt (3 x
+    (drop, ...) int32) and bcnt ((drop,) int64), in place: each run of equal
+    keys < drop stores its sum and summed count into its bucket row."""
+    threads = combine_threads(curve)
+    if kn.on_cpu(keys, *pts, cnt, *bkt, bcnt):
+        return combine_plain(curve, keys, pts, cnt, bkt, bcnt, drop, threads)
+    items = 2 * threads
+    dev = keys.device
+    tail = tc.coord_tail(curve)
+    keys = keys.to(torch.int32).contiguous()
+    pts = tuple(p.contiguous() for p in pts)
+    kn.check_cuda("msm_combine", keys, *pts, cnt, *bkt, bcnt)
+    while True:
+        n = keys.shape[0]
+        final = n <= items
+        nout = 2 * -(-n // items)
+        if final:   # outputs unused: any valid pointers
+            okeys, opts, ocnt = keys, pts, cnt
+        else:
+            okeys = torch.empty(nout, dtype=torch.int32, device=dev)
+            opts = tuple(torch.empty((nout,) + tail, dtype=torch.int32,
+                                     device=dev) for _ in range(3))
+            ocnt = torch.empty(nout, dtype=torch.int64, device=dev)
+        kn.K["msm_combine"](kn.CURVE_ID[curve], int(final), n, keys, *pts,
+                            cnt, drop, threads, okeys, *opts, ocnt, *bkt,
+                            bcnt)
+        if final:
+            return None
+        keys, pts, cnt = okeys, opts, ocnt
+
+
+# ---------------------------------------------------------------------------
+# Step 4a: weighted bucket sums (kernel msm_triangle)
+# ---------------------------------------------------------------------------
+
+def triangle_sizes(nb: int):
+    """(chunk, threads, blocks per window) of msm_triangle for 2^c = nb
+    bucket slots: 8 buckets a thread, up to 64 threads a block, the rest in
+    blocks (c = 12: 8 blocks per window, 176 blocks over 22 windows)."""
+    chunk = min(8, nb)
+    threads = min(64, nb // chunk)
+    return chunk, threads, nb // (chunk * threads)
+
+
+def triangle_plain(curve, bkt, W: int, nb: int, chunk: int):
+    """msm_triangle in its association order. Slot j = d - 1 of a window
+    holds bucket d (the last slot is infinity); a leaf walks `chunk` slots
+    from the top (run += S, acc += run) and becomes (t = chunk*run, w =
+    acc); the leaves join pairwise, neighbours first, by w' = (w_lo + w_hi)
+    + t_hi, t' = 2 (t_lo + t_hi). The split of that tree between threads and
+    blocks in the kernel does not change it. Returns win (W, ...) int32."""
+    F = tc.ops(curve)
+    dev = bkt[0].device
+    tail = tc.coord_tail(curve)
+    zw = _zeros_pts(curve, W, dev)
+    leaves = nb // chunk
+    S = tuple(torch.cat([b.reshape((W, nb) + tail)[:, 1:], z[:, None]], 1)
+              .reshape((W * leaves, chunk) + tail) for b, z in zip(bkt, zw))
+    run = acc = _zeros_pts(curve, W * leaves, dev)
+    for i in range(chunk - 1, -1, -1):
+        run = tc.point_add(F, run, tuple(s[:, i] for s in S))
+        acc = tc.point_add(F, acc, run)
+    t = run
+    for _ in range(chunk.bit_length() - 1):
+        t = tc.point_double(F, t)
+    t = tuple(x.reshape((W, leaves) + tail) for x in t)
+    w = tuple(x.reshape((W, leaves) + tail) for x in acc)
+    n = leaves
+    while n > 1:
+        def sp(P, which):
+            return tuple(x.reshape((W, n // 2, 2) + tail)[:, :, which]
+                         for x in P)
+        w = tc.point_add(F, tc.point_add(F, sp(w, 0), sp(w, 1)), sp(t, 1))
+        t = tc.point_double(F, tc.point_add(F, sp(t, 0), sp(t, 1)))
+        n //= 2
+    return tuple(x[:, 0].to(torch.int32) for x in w)
+
+
+def triangle(curve: str, bkt, W: int, nb: int):
+    """win_w = sum_{d=1}^{nb-1} d * S_{w,d} over the (W*nb, ...) bucket
+    arrays, as (W, ...) Jacobian int32 points."""
+    chunk, threads, blocks = triangle_sizes(nb)
+    if kn.on_cpu(*bkt):
+        return triangle_plain(curve, bkt, W, nb, chunk)
+    dev = bkt[0].device
+    tail = tc.coord_tail(curve)
+    bkt = tuple(b.contiguous() for b in bkt)
+    kn.check_cuda("msm_triangle", *bkt)
+    scratch = [torch.empty((W * blocks,) + tail, dtype=torch.int32,
+                           device=dev) for _ in range(6)]
+    counters = torch.zeros(W, dtype=torch.int32, device=dev)
+    out = [torch.empty((W,) + tail, dtype=torch.int32, device=dev)
+           for _ in range(3)]
+    kn.K["msm_triangle"](kn.CURVE_ID[curve], W, nb, *bkt, chunk, threads,
+                         blocks, *scratch, counters, *out)
+    return tuple(out)
+
+
+# ---------------------------------------------------------------------------
 # Step 4b: Horner fold over windows (kernel msm_fold)
 # ---------------------------------------------------------------------------
 
@@ -205,6 +437,13 @@ def fold(curve: str, c: int, win):
     return tuple(out)
 
 
+def window_counts(cnt, W: int, nb: int):
+    """The triangle's integer mirror: window w holds sum_d d * cnt_{w,d}
+    surplus copies of the blind R, as (W,) int64."""
+    cw = cnt.reshape(W, nb)[:, 1:]
+    return torch.flip(torch.cumsum(torch.flip(cw, [1]), 1), [1]).sum(1)
+
+
 # ---------------------------------------------------------------------------
 # The MSM
 # ---------------------------------------------------------------------------
@@ -213,98 +452,39 @@ def _select(curve, mask, a, b):
     return tuple(tc.ops(curve).select(mask, x, y) for x, y in zip(a, b))
 
 
-def msm(curve: str, points, scalars, c: int, lanes: int, blind=None):
-    """sum_i scalars_i * points_i as a Jacobian point (X, Y, Z) of int32
-    coordinate tensors without batch axis; with blind=(Rx, Ry) the result
-    is (X, Y, Z, wts) with wts the (W,) int64 per-window counts of R."""
-    X, Y, inf = points
-    dev = X.device
-    n = X.shape[0]
-    W = n_windows(c)
-    nb = 1 << c
-    keys, pids, drop = stream_keys(points, scalars, c)
-
-    # ---- 2. accumulation over T lanes of L items ------------------------
-    total = W * n
+def pad_stream(keys, pids, drop: int, lanes: int):
+    """Cut the stream into T = min(lanes, items) lanes of L items, padding
+    the tail with dead items. Returns (keys, pids, T, L)."""
+    total = keys.shape[0]
     T = max(1, min(lanes, total))
     L = -(-total // T)
     pad = T * L - total
     if pad:
+        dev = keys.device
         keys = torch.cat([keys, torch.full((pad,), drop, dtype=torch.int32,
                                            device=dev)])
         pids = torch.cat([pids, torch.zeros(pad, dtype=torch.int32,
                                             device=dev)])
+    return keys, pids, T, L
+
+
+def msm(curve: str, points, scalars, c: int, lanes: int, blind=None):
+    """sum_i scalars_i * points_i as a Jacobian point (X, Y, Z) of int32
+    coordinate tensors without batch axis; with blind=(Rx, Ry) the result
+    is (X, Y, Z, wts) with wts the (W,) int64 per-window counts of R."""
+    W = n_windows(c)
+    nb = 1 << c
+    keys, pids, drop = stream_keys(points, scalars, c)
+    keys, pids, T, L = pad_stream(keys, pids, drop, lanes)
     acc, meta, head, bkt, cnt = accumulate(curve, keys, pids, points, blind,
                                            T, L, drop)
-    cur_key = meta[0].to(torch.int64)
-    seen = meta[2] != 0
-    head_key = torch.where(seen, meta[1].to(torch.int64), cur_key)
-
-    # ---- 3. boundary combine (segmented scan of point adds) -------------
-    head = _select(curve, seen, head, _zeros_pts(curve, T, dev))
-    bkeys = torch.stack([head_key, cur_key], 1).reshape(-1)
-    pts = tuple(torch.stack([h, a], 1).reshape((2 * T,) + h.shape[1:])
-                for h, a in zip(head, acc))
-    fl = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
-                    bkeys[1:] != bkeys[:-1]])
-    cn = torch.stack([seen.to(torch.int64),
-                      torch.ones(T, dtype=torch.int64, device=dev)],
-                     1).reshape(-1)
-    pos = torch.arange(2 * T, device=dev)
-    for i in range(max(1, (2 * T - 1).bit_length())):
-        shift = 1 << i
-        prev = tuple(torch.roll(p, shift, 0) for p in pts)
-        valid = pos >= shift
-        s = pc.add(curve, prev, pts)
-        take = valid & ~fl
-        pts = _select(curve, take, s, pts)
-        cn = torch.where(take, torch.roll(cn, shift, 0) + cn, cn)
-        fl = fl | (valid & torch.roll(fl, shift, 0))
-    run_end = torch.cat([bkeys[:-1] != bkeys[1:],
-                         torch.ones(1, dtype=torch.bool, device=dev)])
-    write = run_end & (bkeys < drop)
-    widx = bkeys[write]
-    for b, p in zip(bkt, pts):
-        b[widx] = p[write]
     cnt = cnt.to(torch.int64)
-    cnt[widx] = cn[write]
-
-    # ---- 4. weighted-pair triangle tree, then the fold ------------------
-    # Each node carries (s, t, w): s = sum of its block, t = blocksize*s,
-    # w = sum (local index)*S. Combining two size-m blocks:
-    #   w' = w_lo + w_hi + t_hi, t' = 2*(t_lo + t_hi), s' = s_lo + s_hi.
-    # The root gives sum_j j*S_j over 0-based j; win = w + s rebases to
-    # d = j + 1 (bucket 0 is dropped, the block is infinity-padded to 2^c).
-    tail = tc.coord_tail(curve)
-    zw = _zeros_pts(curve, W, dev)
-    s = tuple(torch.cat([b.reshape((W, nb) + tail)[:, 1:], z[:, None]], 1)
-              for b, z in zip(bkt, zw))
-    t = s
-    w = tuple(z[:, None].expand(p.shape).contiguous() for p, z in zip(s, zw))
-    size = nb
-    while size > 1:
-        half = size // 2
-
-        def sp(P, which):
-            return tuple(x.reshape((W, half, 2) + tail)[:, :, which]
-                         for x in P)
-
-        t_hi = sp(t, 1)
-        w = pc.add(curve, pc.add(curve, sp(w, 0), sp(w, 1)), t_hi)
-        s_new = pc.add(curve, sp(s, 0), sp(s, 1))
-        if half > 1:  # the root's t is never read
-            t = pc.double(curve, pc.add(curve, sp(t, 0), t_hi))
-        s = s_new
-        size = half
-    win = pc.add(curve, tuple(x[:, 0] for x in w), tuple(x[:, 0] for x in s))
-    res = fold(curve, c, win)
+    combine(curve, *boundary_partials(curve, acc, meta, head), bkt, cnt,
+            drop)
+    res = fold(curve, c, triangle(curve, bkt, W, nb))
     if blind is None:
         return res
-    # the triangle's integer mirror: window w holds sum_j sum_{d>=j} cnt_d
-    # surplus copies of R
-    cw = cnt.reshape(W, nb)[:, 1:]
-    wts = torch.flip(torch.cumsum(torch.flip(cw, [1]), 1), [1]).sum(1)
-    return res + (wts,)
+    return res + (window_counts(cnt, W, nb),)
 
 
 # ---------------------------------------------------------------------------

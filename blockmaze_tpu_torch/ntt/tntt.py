@@ -17,10 +17,10 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from blockmaze_tpu.fields.constants import R_MOD
-from blockmaze_tpu.ntt.domain import MULT_GEN, BasicDomain, StepDomain
 from ..fields import tfield as tf
+from ..fields.constants import R_MOD
 from . import pntt
+from .domain import MULT_GEN, BasicDomain, StepDomain
 
 FR = tf.FR
 

@@ -47,6 +47,10 @@ SIGNATURES = {
     "bm_point_mixed_add": [_I, _I] + [_P] * 9 + [_LL, _P],
     "bm_msm_accumulate": [_I, _I] + [_P] * 7 + [_I, _LL, _LL] + [_P] * 11
                          + [_P],
+    "bm_msm_combine": [_I, _I, _LL] + [_P] * 5 + [_I, _I] + [_P] * 9
+                      + [_P],
+    "bm_msm_triangle": [_I, _I, _I] + [_P] * 3 + [_I, _I, _I] + [_P] * 10
+                       + [_P],
     "bm_msm_fold": [_I, _P, _P, _P, _I, _I, _P, _P, _P, _P],
 }
 
@@ -157,14 +161,16 @@ class Kernel:
 
 
 def check_cuda(name: str, *tensors):
-    """Validate what a kernel takes: CUDA, contiguous, int32 (or uint8)."""
+    """Validate what a kernel takes: CUDA, contiguous, int32 (or int64
+    counts, uint8 masks)."""
     for t in tensors:
         if not t.is_cuda:
             raise ValueError(f"{name}: expected CUDA tensors, got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: expected contiguous tensors")
-        if t.dtype not in (torch.int32, torch.uint8):
-            raise ValueError(f"{name}: expected int32/uint8, got {t.dtype}")
+        if t.dtype not in (torch.int32, torch.int64, torch.uint8):
+            raise ValueError(f"{name}: expected int32/int64/uint8, got "
+                             f"{t.dtype}")
 
 
 def on_cpu(*tensors) -> bool:
@@ -194,8 +200,14 @@ K = {
     "msm_round": Kernel("msm_round", "bm_msm_accumulate",
                         "blockmaze_tpu_torch/csrc/pippenger.cu",
                         "blockmaze_tpu/msm/pippenger.py:193"),
+    "msm_combine": Kernel("msm_combine", "bm_msm_combine",
+                          "blockmaze_tpu_torch/csrc/combine.cu",
+                          "blockmaze_tpu/curves/pcurve.py:129"),
+    "msm_triangle": Kernel("msm_triangle", "bm_msm_triangle",
+                           "blockmaze_tpu_torch/csrc/triangle.cu",
+                           "blockmaze_tpu/curves/pcurve.py:129"),
     "msm_fold": Kernel("msm_fold", "bm_msm_fold",
-                       "blockmaze_tpu_torch/csrc/pippenger.cu",
+                       "blockmaze_tpu_torch/csrc/fold.cu",
                        "blockmaze_tpu/msm/pippenger.py:288"),
     "mixed_add": Kernel("mixed_add", "bm_point_mixed_add",
                         "blockmaze_tpu_torch/csrc/pcurve.cu",

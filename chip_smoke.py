@@ -5,16 +5,32 @@
 Phases, each timed; any failure raises and the script exits nonzero:
   0. build the CUDA kernels from blockmaze_tpu_torch/csrc (nvcc, sm_90a);
   1. every kernel against its plain torch version on the same CUDA tensors,
-     bit-exact, with kernel and plain times;
+     bit-exact, with kernel and plain times and each kernel's bound; the
+     bucket reduction (msm_combine, msm_triangle, msm_fold) at the prover's
+     MSM shape (32,768 lanes, c = 12, 22 windows), G1 and G2, on real
+     blinded partial sums with runs across many blocks;
   2. MSMs at the prover's sizes against closed forms: sum_i k_i * (i*G)
      = (sum_i i*k_i mod r) * G for 2^18 G1 points and 2^14 G2 points;
   3. the mint circuit end to end: constraints and witness, keygen (seeded
      toxic waste), Prover on cuda:0, three proofs, each verified by the host
      verifier, and two proofs with equal (r, s) equal.
-The launch counts of every kernel are reset just before phase 3 and must
-all be nonzero after it. The second-to-last line is the kernel table as
+The launch counts are reset just before keygen and read just after it, and
+reset again just before the three proofs and read just after them: each
+path must launch each of its kernels, and the prove path must not launch
+the batched point kernels (add, double), which the bucket reduction
+replaced there. double (K4) is on neither path any more; phase 1 holds it
+against its plain version. The second-to-last line is the kernel table as
 JSON; the last line is the result JSON. With no GPU it exits nonzero before
 printing either.
+
+Bounds: the least time the card could take for a kernel's work on the
+inputs it was timed on, the larger of (bytes in + bytes out) / 3.35 TB/s
+and IMAD count / 16.7 T/s. One Montgomery product of 256-bit operands (8 x
+32-bit CIOS) is 264 IMAD: 128 32x32->64 products at 2 IMAD each, and 8 for
+the reduction factors. 16.7 T/s = 132 SMs x 64 IMAD per clock x 1.98 GHz,
+half the float32 FMA rate behind the 67 TFLOP/s of the card's data sheet.
+Products are counted per point operation on the path each input takes
+(G1/G2 Fq products: add 16/43, double 7/16, mixed add 11/29).
 """
 
 from __future__ import annotations
@@ -30,6 +46,19 @@ import numpy as np
 import torch
 
 SEED = 20261016
+LANES = 32768          # the prover's MSM accumulation width
+WINDOW = 12            # its Pippenger window at the mint's sizes
+MEM_RATE = 3.35e12     # bytes/s
+IMAD_RATE = 132 * 64 * 1.98e9
+IMAD_PER_PRODUCT = 264
+PRODUCTS = {"g1": {"add": 16, "dbl": 7, "madd": 11},
+            "g2": {"add": 43, "dbl": 16, "madd": 29}}
+ORDER = ["butterfly", "mul_elementwise", "add", "double", "msm_round",
+         "msm_combine", "msm_triangle", "msm_fold", "mixed_add",
+         "mixed_add_noexc"]
+KEYGEN_PATH = ["add", "mixed_add", "mixed_add_noexc"]
+PROVE_PATH = ["butterfly", "mul_elementwise", "msm_round", "msm_combine",
+              "msm_triangle", "msm_fold"]
 
 
 def log(*a):
@@ -61,6 +90,14 @@ def timed(fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound(products: int, nbytes: int):
+    """(bound_ms, bound_by) for `products` Montgomery products and `nbytes`
+    bytes moved."""
+    ops_ms = products * IMAD_PER_PRODUCT / IMAD_RATE * 1e3
+    mem_ms = nbytes / MEM_RATE * 1e3
+    return (ops_ms, "operations") if ops_ms >= mem_ms else (mem_ms, "bytes")
+
+
 def main():
     require_gpu()
     from blockmaze_tpu_torch.utils import kernels as kn
@@ -74,8 +111,10 @@ def main():
     log("torch", torch.__version__, "cuda", torch.version.cuda, "device",
         torch.cuda.get_device_name(0))
     rng = np.random.default_rng(SEED)
+    # no PyTorch call computes a BN254 Montgomery product or a curve
+    # operation, so no kernel has a library yardstick
     report = {name: {"name": name, "route": "cuda", "source": k.source,
-                     "replaces": k.replaces}
+                     "replaces": k.replaces, "library_ms": None}
               for name, k in kn.K.items()}
     t_all = time.perf_counter()
 
@@ -97,19 +136,13 @@ def main():
 
     # ---- phase 3: mint end to end ----------------------------------------
     t0 = time.perf_counter()
-    counts = phase3(dev)
+    keygen_counts, prove_counts = phase3(dev)
     log(f"phase 3 mint: {time.perf_counter() - t0:.1f}s")
     for name in kn.K:
-        report[name]["launches"] = counts.get(name, 0)
-    log("launch counts (mint phase):", json.dumps(counts))
-    missing = [k for k, n in counts.items() if n == 0]
-    if missing:
-        raise RuntimeError(f"kernels never launched on the main path: "
-                           f"{missing}")
+        report[name]["launches"] = (keygen_counts or {}).get(name, 0) \
+            + prove_counts.get(name, 0)
     log(f"total: {time.perf_counter() - t_all:.1f}s")
-    order = ["butterfly", "mul_elementwise", "add", "double", "msm_round",
-             "msm_fold", "mixed_add", "mixed_add_noexc"]
-    log(json.dumps({"kernels": [report[k] for k in order]}))
+    log(json.dumps({"kernels": [report[k] for k in ORDER]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -157,6 +190,15 @@ def max_abs_err(a, b) -> int:
                for x, y in zip(a, b))
 
 
+def finite(Z):
+    """Per point: Z != 0 (G1 (n, 16), G2 (n, 2, 16))."""
+    return Z.reshape(Z.shape[0], -1).ne(0).any(1)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 # ---------------------------------------------------------------------------
 # Phase 1: each kernel against its plain version on the card
 # ---------------------------------------------------------------------------
@@ -182,18 +224,23 @@ def phase1(dev, rng, report):
         err = max_abs_err(got, want)
         ok = same(got, want)
         ms = timed(kern, reps)
-        log(f"  {name:<22} {shape:<34} bit-exact={ok} max_abs_err={err} "
+        log(f"  {name:<16} {shape:<40} bit-exact={ok} max_abs_err={err} "
             f"kernel {ms:.4f} ms  plain {pms:.3f} ms")
         if not ok:
             raise AssertionError(f"{name}: kernel != plain at {shape}")
         return err, ms, pms
 
-    def record(key, res):
+    def record(key, res, products, moved):
+        """Keep the first (G1) shape's times and bound; every shape's
+        error."""
         err, ms, pms = res
+        b_ms, b_by = bound(products, moved)
+        log(f"  {'':<16} bound {b_ms:.5f} ms ({b_by}: {products} products, "
+            f"{moved} bytes)")
         r = report[key]
         r["max_abs_err"] = max(err, r.get("max_abs_err", 0))
-        r.setdefault("ms", ms)           # the first (G1) shape's times
-        r.setdefault("plain_ms", pms)
+        if "ms" not in r:
+            r.update(ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by)
 
     # warm the plain path's torch kernels so its first timing is not a
     # measure of CUDA module loading
@@ -207,18 +254,21 @@ def phase1(dev, rng, report):
     record("mul_elementwise", check(
         "mul_elementwise", "Fr (2^16, 16)",
         lambda: pntt.mul_elementwise(a, b),
-        lambda: pntt.mul_elementwise_plain(a, b), reps=20))
+        lambda: pntt.mul_elementwise_plain(a, b), reps=20),
+        a.shape[0], 3 * nbytes(a))
     m, span = 1 << 17, 1 << 15
     x = rand_field(rng, (m,), dev)
     tw = rand_field(rng, (span,), dev)
     record("butterfly", check(
         "butterfly", "Fr stage m=2^17 span=2^15",
         lambda: pntt.butterfly(x, tw, span),
-        lambda: pntt.butterfly_plain(x, tw, span), reps=20))
+        lambda: pntt.butterfly_plain(x, tw, span), reps=20),
+        m // 2, 2 * nbytes(x) + nbytes(tw))
 
     # K3, K4, K7, K8 at 2^14 (G1) and 2^12 (G2), with edge lanes
     for curve, n in (("g1", 1 << 14), ("g2", 1 << 12)):
         F = tc.ops(curve)
+        pr = PRODUCTS[curve]
         P = tuple(rand_coord(curve, rng, n, dev) for _ in range(3))
         Q = tuple(rand_coord(curve, rng, n, dev) for _ in range(3))
         P, Q = with_edge_lanes(P, Q)
@@ -231,18 +281,31 @@ def phase1(dev, rng, report):
         Pm[2][6:10] = F.one_like(Pm[2][6:10]).to(torch.int32)
         Qa[1][8:10] = tf.neg(tf.FQ, P[1][8:10]).to(torch.int32)
         shape = f"{curve} n={n}"
+        both = finite(P[2]) & finite(Q[2])
+        equal = both & torch.stack([(p == q).reshape(n, -1).all(1)
+                                    for p, q in zip(P, Q)]).all(0)
+        # an equal pair stops after 8 products and doubles instead
+        add_products = int(both.sum()) * pr["add"] + int(equal.sum()) * (
+            8 + pr["dbl"] - pr["add"])
+        pt_bytes = nbytes(*P)
         record("add", check("add", shape, lambda: pc.add(curve, P, Q),
-                            lambda: tc.point_add(F, P, Q)))
+                            lambda: tc.point_add(F, P, Q)),
+               add_products, 3 * pt_bytes)
         record("double", check("double", shape, lambda: pc.double(curve, P),
-                               lambda: tc.point_double(F, P)))
+                               lambda: tc.point_double(F, P)),
+               n * pr["dbl"], 2 * pt_bytes)
+        live = int((finite(Pm[2]) & ~qinf).sum())
+        madd_bytes = 2 * pt_bytes + nbytes(Qa[0], Qa[1], qinf)
         record("mixed_add", check(
             "mixed_add", shape,
             lambda: pc.mixed_add(curve, Pm, Qa[0], Qa[1], qinf),
-            lambda: tc.point_mixed_add(F, Pm, Qa[0], Qa[1], qinf)))
+            lambda: tc.point_mixed_add(F, Pm, Qa[0], Qa[1], qinf)),
+            live * pr["madd"], madd_bytes)
         record("mixed_add_noexc", check(
             "mixed_add_noexc", shape,
             lambda: pc.mixed_add_noexc(curve, Pm, Qa[0], Qa[1], qinf),
-            lambda: tc.point_mixed_add_noexc(F, Pm, Qa[0], Qa[1], qinf)))
+            lambda: tc.point_mixed_add_noexc(F, Pm, Qa[0], Qa[1], qinf)),
+            int((~qinf).sum()) * pr["madd"], madd_bytes)
 
     # K5: the accumulation at T = 256 lanes, c = 8, blinded, G1 and G2 (on
     # real points: the exception-free add needs the blind argument)
@@ -253,38 +316,115 @@ def phase1(dev, rng, report):
         sc[:, 15] &= 0x3fff
         sc[5] = 0
         keys, pids, drop = pp.stream_keys(pts, sc, 8)
-        T = 256
-        L = -(-keys.shape[0] // T)
-        pad = T * L - keys.shape[0]
-        keys = torch.cat([keys, torch.full((pad,), drop, dtype=torch.int32,
-                                           device=dev)])
-        pids = torch.cat([pids, torch.zeros(pad, dtype=torch.int32,
-                                            device=dev)])
+        keys, pids, T, L = pp.pad_stream(keys, pids, drop, 256)
         _, blind = pp.make_blind(curve, dev)
 
         def flat(res):
             acc, meta, head, bkt, cnt = res
             return tuple(acc) + (meta,) + tuple(head) + tuple(bkt) + (cnt,)
 
+        live = int(((keys < drop) & ~pts[2][pids.long()]).sum())
         record("msm_round", check(
             "msm_round", f"{curve} n={n} c=8 T=256 L={L}",
             lambda: flat(pp.accumulate(curve, keys, pids, pts, blind, T, L,
                                        drop)),
             lambda: flat(pp.accumulate_plain(curve, keys, pids, pts, blind,
-                                             T, L, drop)), reps=3))
+                                             T, L, drop)), reps=3),
+            live * PRODUCTS[curve]["madd"],
+            nbytes(keys, pids, pts[0], pts[1], pts[2])
+            + 2 * T * 3 * nbytes(pts[0][0]) + 3 * T * 4)
 
-        # K6: the Horner fold of random window sums (22 windows, c = 12)
-        win = tuple(rand_coord(curve, rng, 22, dev) for _ in range(3))
-        record("msm_fold", check(
-            "msm_fold", f"{curve} W=22 c=12",
-            lambda: pp.fold(curve, 12, win),
-            lambda: pp.fold_plain(curve, 12, win), reps=3))
+    # the bucket reduction at the prover's MSM shape
+    for curve, n in (("g1", 1 << 15), ("g2", 1 << 13)):
+        reduction_parity(curve, n, dev, rng, check, record)
+
+
+def reduction_parity(curve, n, dev, rng, check, record):
+    """msm_combine, msm_triangle and msm_fold against their plain versions
+    on real data at T = 32,768 lanes, c = 12, 22 windows: n points i*G,
+    half of them with scalar 0 or 1 (so window 0's bucket 1 is one run
+    across hundreds of lanes and several combine blocks), half random,
+    accumulated blinded by msm_round."""
+    from blockmaze_tpu_torch.msm import pippenger as pp
+    pr = PRODUCTS[curve]
+    c, W, nb = WINDOW, pp.n_windows(WINDOW), 1 << WINDOW
+    pts, _ = curve_points(curve, n, dev)
+    sc = torch.from_numpy(rng.integers(0, 1 << 16, (n, 16),
+                                       dtype=np.int64)).to(dev)
+    sc[:, 15] &= 0x2fff
+    sc[: n // 2] = 0
+    sc[: n // 2, 0] = torch.from_numpy(rng.integers(0, 2, n // 2)).to(dev)
+    keys, pids, drop = pp.stream_keys(pts, sc, c)
+    keys, pids, T, L = pp.pad_stream(keys, pids, drop, LANES)
+    _, blind = pp.make_blind(curve, dev)
+    acc, meta, head, bkt0, cnt0 = pp.accumulate(curve, keys, pids, pts,
+                                                blind, T, L, drop)
+    cnt0 = cnt0.to(torch.int64)
+    bkeys, bpts, bcn = pp.boundary_partials(curve, acc, meta, head)
+    runs = torch.unique_consecutive(bkeys[bkeys < drop], return_counts=True)[1]
+    items = 2 * pp.combine_threads(curve)
+    log(f"  {curve} reduction input: n={n} T={T} L={L}, {bkeys.shape[0]} "
+        f"partials, longest run {int(runs.max())} partials "
+        f"({int(runs.max()) / items:.1f} combine blocks of {items})")
+    bk = [tuple(b.clone() for b in bkt0) for _ in range(2)]
+    ck = [cnt0.clone() for _ in range(2)]
+
+    def run_kernel():
+        pp.combine(curve, bkeys, bpts, bcn, bk[0], ck[0], drop)
+        return bk[0] + (ck[0],)
+
+    def run_plain():
+        pp.combine_plain(curve, bkeys, bpts, bcn, bk[1], ck[1], drop,
+                         pp.combine_threads(curve))
+        return bk[1] + (ck[1],)
+
+    # the adds the data needs: one per finite partial past the first of
+    # each run
+    live = bkeys < drop
+    rid = torch.cumsum(torch.cat([torch.zeros(1, dtype=torch.int64,
+                                              device=dev),
+                                  (bkeys[1:] != bkeys[:-1]).long()]), 0)
+    fin = torch.zeros(int(rid.max()) + 1, dtype=torch.int64, device=dev)
+    fin.index_add_(0, rid[live], finite(bpts[2])[live].long())
+    merges = int((fin - 1).clamp(min=0).sum())
+    pt_row = 3 * nbytes(bpts[0][0])
+    record("msm_combine", check(
+        "msm_combine", f"{curve} 2T={bkeys.shape[0]} blocks of {items}",
+        run_kernel, run_plain, reps=5),
+        merges * pr["add"],
+        nbytes(bkeys, bcn, *bpts) + int(runs.numel()) * (pt_row + 8))
+
+    bkt = bk[0]
+    nonempty = int(finite(bkt[2]).reshape(W, nb)[:, 1:].sum())
+    chunk, threads, blocks = pp.triangle_sizes(nb)
+    record("msm_triangle", check(
+        "msm_triangle", f"{curve} W={W} c={c} chunk={chunk} "
+        f"{threads}x{blocks}/window",
+        lambda: pp.triangle(curve, bkt, W, nb),
+        lambda: pp.triangle_plain(curve, bkt, W, nb, chunk), reps=5),
+        2 * nonempty * pr["add"], nbytes(*bkt) + W * pt_row)
+
+    win = pp.triangle(curve, bkt, W, nb)
+    record("msm_fold", check(
+        "msm_fold", f"{curve} W={W} c={c}",
+        lambda: pp.fold(curve, c, win),
+        lambda: pp.fold_plain(curve, c, win), reps=5),
+        (W - 1) * (c * pr["dbl"] + pr["add"]), W * pt_row + pt_row)
+    # the add's branches: windows (top first) inf, P, P, A, inf with c = 0
+    # take p = inf, P = Q (doubling), the general add and q = inf
+    P1 = tuple(t[1:2] for t in win)
+    A = tuple(t[2:3] for t in win)
+    inf = tuple(torch.zeros_like(t) for t in P1)
+    edge = tuple(torch.cat(parts) for parts in zip(inf, A, P1, P1, inf))
+    check("msm_fold", f"{curve} W=5 c=0 (inf/double/general branches)",
+          lambda: pp.fold(curve, 0, edge),
+          lambda: pp.fold_plain(curve, 0, edge), reps=1)
 
 
 def curve_points(curve, n, dev):
     """Affine points i*G for i = 1..n as device tensors, built by a host
     chain of additions; returns (points, [host affine])."""
-    from blockmaze_tpu.curves import host_curve as HC
+    from blockmaze_tpu_torch.curves import host_curve as HC
     from blockmaze_tpu_torch.curves import tcurve as tc
     from blockmaze_tpu_torch.fields import tfield as tf
     if curve == "g1":
@@ -304,10 +444,10 @@ def curve_points(curve, n, dev):
 # ---------------------------------------------------------------------------
 
 def phase2(dev):
-    from blockmaze_tpu.curves import host_curve as HC
-    from blockmaze_tpu.fields.constants import R_MOD
+    from blockmaze_tpu_torch.curves import host_curve as HC
     from blockmaze_tpu_torch.curves import tcurve as tc
     from blockmaze_tpu_torch.fields import tfield as tf
+    from blockmaze_tpu_torch.fields.constants import R_MOD
     from blockmaze_tpu_torch.msm import pippenger as pp
 
     py = random.Random(SEED)
@@ -323,10 +463,10 @@ def phase2(dev):
         for rep in range(2):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            res = pp.msm(curve, pts, sc, c, 32768, blind=blind)
+            res = pp.msm(curve, pts, sc, c, LANES, blind=blind)
             torch.cuda.synchronize()
             t_msm = time.perf_counter() - t0
-            log(f"  msm {curve} n=2^{logn} c={c} lanes=32768 run {rep}: "
+            log(f"  msm {curve} n=2^{logn} c={c} lanes={LANES} run {rep}: "
                 f"{t_msm * 1e3:.1f} ms")
         to_host = tc.g1_jacobian_to_host if curve == "g1" \
             else tc.g2_jacobian_to_host
@@ -348,9 +488,9 @@ def phase2(dev):
 def mint_protoboard():
     """The mint circuit with its constraints and the witness of
     scripts/witnesses.py (sk = 1, r_old = 123456, r = 123, values 6/13/7)."""
-    from blockmaze_tpu.circuits.mint import MintGadget
-    from blockmaze_tpu.crypto import notes as NT
-    from blockmaze_tpu.r1cs.protoboard import Protoboard
+    from blockmaze_tpu_torch.circuits.mint import MintGadget
+    from blockmaze_tpu_torch.crypto import notes as NT
+    from blockmaze_tpu_torch.r1cs.protoboard import Protoboard
     sk, r_old, r = (NT.uint256_from_hex(h) for h in ("1", "123456", "123"))
     note_old = NT.Note(6, NT.compute_prf(sk, r_old), r_old)
     note = NT.Note(13, NT.compute_prf(sk, r), r)
@@ -361,13 +501,22 @@ def mint_protoboard():
     return pb
 
 
+def check_launches(path, counts, expected, forbidden=()):
+    log(f"  {path} launches: {json.dumps(counts)}")
+    missing = [k for k in expected if counts.get(k, 0) == 0]
+    if missing:
+        raise RuntimeError(f"{path}: kernels never launched: {missing}")
+    stray = [k for k in forbidden if counts.get(k, 0) != 0]
+    if stray:
+        raise RuntimeError(f"{path}: kernels launched that the path no "
+                           f"longer uses: {stray}")
+
+
 def phase3(dev):
-    from blockmaze_tpu.groth16 import verifier
-    from blockmaze_tpu_torch.groth16 import generator
+    from blockmaze_tpu_torch.groth16 import generator, verifier
     from blockmaze_tpu_torch.groth16.prover import Prover
     from blockmaze_tpu_torch.utils import kernels as kn
 
-    kn.reset_counts()
     t0 = time.perf_counter()
     pb = mint_protoboard()
     if not pb.is_satisfied():
@@ -378,13 +527,18 @@ def phase3(dev):
     t0 = time.perf_counter()
     cache = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "blockmaze_tpu_torch", "_keys")
-    dpk, vk, generated = generator.generate_cached(pb, dev, "mint", SEED,
-                                                   cache)
+    kn.reset_counts()
+    dpk, vk, generated = generator.generate_cached(pb, "mint", SEED, cache,
+                                                   dev)
     torch.cuda.synchronize()
+    keygen_counts = kn.counts() if generated else None
     log(f"  keygen (seed {SEED}) + npz/vk cache write and load: "
         f"{time.perf_counter() - t0:.1f}s"
         if generated else
-        f"  keys loaded from {cache} ({time.perf_counter() - t0:.1f}s)")
+        f"  keys loaded from {cache} ({time.perf_counter() - t0:.1f}s); "
+        f"keygen path not run")
+    if generated:
+        check_launches("keygen path", keygen_counts, KEYGEN_PATH)
     t0 = time.perf_counter()
     prover = Prover(dpk, dev)
     torch.cuda.synchronize()
@@ -394,28 +548,73 @@ def phase3(dev):
         f"lanes={prover.lanes})")
     primary, aux = pb.primary_input(), pb.auxiliary_input()
     proofs = []
+    kn.reset_counts()
     for i, (r, s) in enumerate(((1, 2), (1, 2), (None, None))):
         t0 = time.perf_counter()
         proof = prover.prove(primary, aux, r=r, s=s)
         dt = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        ok = verifier.verify(vk, primary, proof)
         phases = {k: round(v, 4) for k, v in prover.timings.items()}
         log(f"  prove {i} ({'first' if i == 0 else 'steady'}): {dt:.3f}s "
-            f"phases {json.dumps(phases)}; verify {ok} "
-            f"({time.perf_counter() - t0:.1f}s)")
+            f"phases {json.dumps(phases)}")
+        proofs.append(proof)
+    torch.cuda.synchronize()
+    prove_counts = kn.counts()
+    check_launches("prove path (3 proofs)", prove_counts, PROVE_PATH,
+                   forbidden=("add", "double", "mixed_add",
+                              "mixed_add_noexc"))
+    log("  per proof: " + json.dumps(
+        {k: v / 3 for k, v in prove_counts.items() if v}))
+    log("  double (K4) runs on neither path; phase 1 holds it against its "
+        "plain version")
+    for i, proof in enumerate(proofs):
+        t0 = time.perf_counter()
+        ok = verifier.verify(vk, primary, proof)
+        log(f"  verify proof {i}: {ok} ({time.perf_counter() - t0:.1f}s)")
         if not ok:
             raise AssertionError(f"mint proof {i} rejected by the verifier")
-        proofs.append(proof)
-    if proofs[0] != proofs[1]:
+    if (proofs[0].a, proofs[0].b, proofs[0].c) != \
+            (proofs[1].a, proofs[1].b, proofs[1].c):
         raise AssertionError("two proofs with equal (r, s) differ")
     log("  proofs 0 and 1 (equal r, s; fresh blinds) equal: True")
-    counts = kn.counts()
+    digit_stats(prover, primary, aux)
     profile_prove(prover, primary, aux)
-    if not generated:   # keygen's kernels did not run in this run
-        for k in ("mixed_add", "mixed_add_noexc"):
-            counts.pop(k)
-    return counts
+    return keygen_counts, prove_counts
+
+
+def digit_stats(prover, primary, aux):
+    """Per mint MSM: the share of nonzero c-bit digits and the longest run
+    of equal keys in the sorted stream, in items and in lanes."""
+    from blockmaze_tpu_torch.fields import tfield as tf
+    from blockmaze_tpu_torch.groth16 import qap
+    from blockmaze_tpu_torch.groth16.prover import _pad_scalars
+    from blockmaze_tpu_torch.msm import pippenger as pp
+    from blockmaze_tpu_torch.ntt import pntt
+    dpk, dev, c = prover.dpk, prover.device, prover.window
+    wires = [1] + list(primary) + list(aux)
+    w_std = tf.to_tensor(tf.ints_to_limbs(wires), dev)
+    w_mont = tf.to_tensor(tf.to_mont_host(tf.FR, wires), dev)
+    m = prover.domain.m
+    H = qap.qap_h_arrays(prover.domain, (dpk.num_constraints,
+                                         dpk.primary_input_size),
+                         prover.coos, w_mont, prover.tables)
+    H_std = pntt.mul_elementwise(H[:m - 1].contiguous(), prover._one)
+    cases = (("A g1", prover.A, w_std, prover.nA),
+             ("B g2/g1", prover.B2, w_std.index_select(0, prover.B_idx),
+              prover.nB),
+             ("H g1", prover.H, H_std, prover.nH),
+             ("L g1", prover.L, w_std[dpk.primary_input_size + 1:],
+              prover.nL))
+    for name, pts, sc, n in cases:
+        sc = _pad_scalars(sc, n)
+        d = pp.digits(sc, c)
+        keys, _, drop = pp.stream_keys(pts, sc, c)
+        L = -(-keys.shape[0] // prover.lanes)
+        live = keys[keys < drop]
+        run = int(torch.unique_consecutive(live, return_counts=True)[1]
+                  .max()) if live.numel() else 0
+        log(f"  msm {name}: n={n}, nonzero digits "
+            f"{float((d != 0).double().mean()):.4f}, longest run {run} "
+            f"items = {run / L:.1f} lanes of {L}")
 
 
 def profile_prove(prover, primary, aux):
@@ -438,9 +637,11 @@ def profile_prove(prover, primary, aux):
             if dev_us(e) > 0]
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows) / 1e6
+    phases = {k: round(v, 4) for k, v in prover.timings.items()}
     log(f"  profiled steady prove: wall {wall:.3f}s (profiler on), device "
-        f"busy {busy * 1e3:.1f} ms = {100 * busy / wall:.1f}% of wall")
-    for key, us, n in rows[:12]:
+        f"busy {busy * 1e3:.1f} ms = {100 * busy / wall:.1f}% of wall; "
+        f"phases {json.dumps(phases)}")
+    for key, us, n in rows[:16]:
         log(f"    {us / 1e3:9.3f} ms  {n:6d}x  {key[:90]}")
 
 

@@ -200,3 +200,147 @@ def test_stream_and_accumulation_match_jax_rounds(curve, blind):
         assert np.array_equal(b.numpy().reshape(drop, cw),
                               jb[:, cw * i:cw * (i + 1)])
     assert np.array_equal(cnt.numpy(), jb[:, -1])
+
+
+# ---------------------------------------------------------------------------
+# The bucket reduction (plain versions of msm_combine, msm_triangle and
+# msm_fold) at block, chunk and thread sizes small enough to reach every
+# branch, against the host oracle
+# ---------------------------------------------------------------------------
+
+def jac_tensors(curve, pts):
+    """Host affine points as Jacobian int32 tensors (Z = 1, infinity as the
+    port builds it: (0, 1, 0))."""
+    x, y, inf = to_tensors(curve, pts, [0] * len(pts))[0]
+    one = tc.ops(curve).one_like(x.to(torch.int64)).to(torch.int32)
+    z = torch.where((~inf).reshape((-1,) + (1,) * (x.dim() - 1)), one,
+                    torch.zeros_like(one))
+    y = torch.where(inf.reshape((-1,) + (1,) * (x.dim() - 1)), one, y)
+    return (x, y, z)
+
+
+def to_host(curve, P):
+    conv = tc.g1_jacobian_to_host if curve == "g1" else tc.g2_jacobian_to_host
+    return conv(tuple(t.to(torch.int64) for t in P))
+
+
+def host_sum(curve, pts):
+    add = HC.g1_add if curve == "g1" else HC.g2_add
+    acc = HC.G1_ZERO if curve == "g1" else HC.G2_ZERO
+    for p in pts:
+        acc = add(acc, p)
+    return acc
+
+
+def combine_case(curve, case, rng):
+    """(keys, host points, counts) of key-sorted partials, dead key 16."""
+    zero = HC.G1_ZERO if curve == "g1" else HC.G2_ZERO
+    if case == "spans-blocks":      # key 2: 9 partials over 3-4 blocks
+        keys = [1] * 3 + [2] * 9 + [3] + [4] * 5 + [16] * 2
+        pts = make_points(curve, rng, len(keys))
+        pts[4] = zero
+    elif case == "covers-block":    # keys 1, 2, 3 each one 4-item block
+        keys = [1] * 4 + [2] * 4 + [3] * 4 + [4] * 2 + [5] * 6
+        pts = make_points(curve, rng, len(keys))
+    else:                           # equal sums: every merge of key 3 and
+        P, Q, R, S = make_points(curve, rng, 4)     # the last of key 1
+        keys = [1] * 4 + [2] * 2 + [3] * 8 + [16]   # doubles
+        pts = [P, Q, P, Q, R, R] + [S] * 8 + [zero]
+    cnt = [rng.randrange(2) for _ in keys]
+    return keys, pts, cnt
+
+
+@pytest.mark.parametrize("threads", [2, 4, 8])
+@pytest.mark.parametrize("case", ["spans-blocks", "covers-block",
+                                  "equal-sums"])
+@pytest.mark.parametrize("curve", ["g1", "g2"])
+def test_combine_plain_reduces_runs(curve, case, threads):
+    """Every run of equal keys < drop lands in its bucket as the sum of its
+    partials, with the summed blind count, whatever the block size (4, 8 or
+    16 partials: several passes or one, runs over many blocks or one)."""
+    rng = random.Random(hash((curve, case)) & 0xffff)
+    keys, pts, cnt = combine_case(curve, case, rng)
+    drop = 16
+    tail = tc.coord_tail(curve)
+    bkt = tuple(torch.zeros((drop,) + tail, dtype=torch.int32)
+                for _ in range(3))
+    bcnt = torch.zeros(drop, dtype=torch.int64)
+    pp.combine_plain(curve, torch.tensor(keys, dtype=torch.int32),
+                     jac_tensors(curve, pts),
+                     torch.tensor(cnt, dtype=torch.int64), bkt, bcnt, drop,
+                     threads)
+    got = to_host(curve, bkt)
+    for k in range(drop):
+        idx = [i for i, kk in enumerate(keys) if kk == k]
+        if not idx:
+            assert all(int(b[k].abs().sum()) == 0 for b in bkt), k
+            continue
+        assert got[k] == host_sum(curve, [pts[i] for i in idx]), k
+        assert int(bcnt[k]) == sum(cnt[i] for i in idx), k
+
+
+@pytest.mark.parametrize("chunk", [1, 2, 4, 16])
+@pytest.mark.parametrize("curve", ["g1", "g2"])
+def test_triangle_plain_is_weighted_bucket_sum(curve, chunk):
+    """win_w = sum_d d * S_{w,d} for every chunk size (16: one leaf a
+    window; 1: a full tree), with empty buckets under full ones (the
+    running sum's add then doubles) and bucket 0 ignored."""
+    rng = random.Random(chunk)
+    W, nb = 2, 16
+    zero = HC.G1_ZERO if curve == "g1" else HC.G2_ZERO
+    pts = make_points(curve, rng, W * nb)
+    for i in (3, 4, 9, 15, 16, 17, 30):
+        pts[i] = zero
+    pts[12] = pts[13]
+    bkt = jac_tensors(curve, pts)
+    got = to_host(curve, pp.triangle_plain(curve, bkt, W, nb, chunk))
+    mul = HC.g1_mul if curve == "g1" else HC.g2_mul
+    for w in range(W):
+        want = host_sum(curve, [mul(pts[w * nb + d], d)
+                                for d in range(1, nb)])
+        assert got[w] == want, w
+
+
+def reduce_small(curve, pts, scalars, lanes, blind, threads, chunk):
+    """msm's steps with the plain combine and triangle at explicit block and
+    chunk sizes; returns (host point, blinded wts or None, counts)."""
+    P, S = to_tensors(curve, pts, scalars)
+    W, nb = pp.n_windows(C), 1 << C
+    keys, pids, drop = pp.stream_keys(P, S, C)
+    keys, pids, T, L = pp.pad_stream(keys, pids, drop, lanes)
+    R, bl = pp.make_blind(curve, "cpu") if blind else (None, None)
+    acc, meta, head, bkt, cnt = pp.accumulate_plain(curve, keys, pids, P, bl,
+                                                    T, L, drop)
+    cnt = cnt.to(torch.int64)
+    pp.combine_plain(curve, *pp.boundary_partials(curve, acc, meta, head),
+                     bkt, cnt, drop, threads)
+    res = pp.fold_plain(curve, C, pp.triangle_plain(curve, bkt, W, nb, chunk))
+    got = to_host(curve, tuple(r[None] for r in res))[0]
+    if not blind:
+        return got, None, cnt
+    wts = pp.window_counts(cnt, W, nb)
+    return pp.unblind_msm(curve, got, wts.numpy(), R, C), wts, cnt
+
+
+@pytest.mark.parametrize("blind", [False, True], ids=["plain", "blinded"])
+@pytest.mark.parametrize("curve", ["g1", "g2"])
+def test_msm_reduction_small_blocks(curve, blind):
+    """Bits as scalars (as the mint witness's SHA-256 wires are): window 0's
+    bucket 1 is one run over many lanes and, at 4 partials a block, many
+    combine blocks; equal points put equal sums in one bucket. The MSM
+    equals the host oracle after unblinding, and wts equals the JAX
+    package's integer mirror of the same bucket counts."""
+    rng = random.Random(21 if curve == "g1" else 22)
+    n = 24 if curve == "g1" else 12
+    pts = make_points(curve, rng, n)
+    pts[3] = pts[5]
+    scalars = [rng.randrange(2) for _ in range(n)]
+    scalars[3] = scalars[5] = 1
+    scalars[-1] = rng.randrange(R_MOD)
+    got, wts, cnt = reduce_small(curve, pts, scalars, 8, blind, 2, 2)
+    assert got == host_msm(curve, pts, scalars)
+    if blind:
+        cw = jnp.asarray(cnt.numpy().reshape(pp.n_windows(C), 1 << C)[:, 1:])
+        csuf = jnp.cumsum(cw[:, ::-1], axis=1)[:, ::-1]
+        want = np.asarray(jnp.sum(csuf, axis=1).astype(jnp.uint32))
+        assert np.array_equal(wts.numpy(), want.astype(np.int64))

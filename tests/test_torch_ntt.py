@@ -2,7 +2,8 @@
 the butterfly and pointwise-product kernels against the Pallas kernels
 (interpret mode on the CPU), and the table-driven FFT pipeline against
 jntt on basic (m = 16, 128) and step (m = 24, 48: big_m = 2 * small_m, the
-mint shape) domains. Exact equality."""
+mint shape) domains, each package on its own domain object. Exact
+equality."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -13,6 +14,7 @@ from blockmaze_tpu.ntt import domain as D
 from blockmaze_tpu.ntt import jntt
 from blockmaze_tpu.ntt import pntt as jpntt
 from blockmaze_tpu_torch.fields import tfield as tf
+from blockmaze_tpu_torch.ntt import domain as TD
 from blockmaze_tpu_torch.ntt import pntt, tntt
 
 # small tensors: one intra-op thread per test process (xdist runs several)
@@ -63,15 +65,18 @@ def test_butterfly_plain_matches_pallas(m, span):
                          ids=["basic16", "basic128", "step24", "step48"])
 def test_pipeline_matches_jntt(min_size):
     d = D.get_evaluation_domain(min_size)
+    td = TD.get_evaluation_domain(min_size)
     assert isinstance(d, D.StepDomain) == (min_size in (24, 48))
+    assert isinstance(td, TD.StepDomain) == (min_size in (24, 48))
+    assert td.m == d.m
     rng = np.random.default_rng(min_size)
     a = _rand_fr(rng, d.m)
     JT = jntt.qap_tables(d)
-    TT = tntt.tables_to(tntt.qap_tables(d), "cpu")
+    TT = tntt.tables_to(tntt.qap_tables(td), "cpu")
     ta = tf.to_tensor(a, "cpu")
     ja = jnp.asarray(a)
     for name in ("fft_t", "ifft_t", "coset_fft_t", "icoset_fft_t"):
-        got = getattr(tntt, name)(d, ta, TT)
+        got = getattr(tntt, name)(td, ta, TT)
         want = getattr(jntt, name)(d, ja, JT)
         assert np.array_equal(_np(got), _np(want)), name
     assert np.array_equal(_np(tntt.divide_by_z_t(ta, TT)),
@@ -80,8 +85,8 @@ def test_pipeline_matches_jntt(min_size):
 
 def test_tables_match_jntt():
     for min_size in (128, 48):
-        d = D.get_evaluation_domain(min_size)
-        JT, TT = jntt.qap_tables(d), tntt.qap_tables(d)
+        JT = jntt.qap_tables(D.get_evaluation_domain(min_size))
+        TT = tntt.qap_tables(TD.get_evaluation_domain(min_size))
         assert set(JT) == set(TT)
         for k, v in JT.items():
             if isinstance(v, tuple):
@@ -94,7 +99,7 @@ def test_tables_match_jntt():
 def test_fft_is_evaluation_on_step_domain():
     """Independent of the JAX package: the step-domain FFT evaluates the
     polynomial at the domain points."""
-    d = D.get_evaluation_domain(24)
+    d = TD.get_evaluation_domain(24)
     rng = np.random.default_rng(9)
     p = tf.FR.modulus
     coeffs = [int.from_bytes(rng.bytes(32), "little") % p for _ in range(d.m)]

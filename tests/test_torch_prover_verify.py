@@ -1,7 +1,9 @@
 """blockmaze_tpu_torch end to end on the CPU (plain versions of every
-kernel): port keygen, port Prover, and the host verifier accepts, on both
-evaluation-domain kinds: chain_circuit(120) (basic, m = 128) and
+kernel): port keygen, port Prover, and the port's host verifier accepts,
+on both evaluation-domain kinds: chain_circuit(120) (basic, m = 128) and
 chain_circuit(46) (step, m = 48 = 32 + 16, the mint shape big_m = 2 small_m).
+The circuit is the JAX package's Protoboard, which the port's keygen takes
+as it is.
 """
 
 import random
@@ -9,12 +11,11 @@ import random
 import pytest
 import torch
 
-from blockmaze_tpu.fields.constants import R_MOD
-from blockmaze_tpu.groth16 import verifier
-from blockmaze_tpu.ntt import domain as D
 from blockmaze_tpu.r1cs.examples import chain_circuit
-from blockmaze_tpu_torch.groth16 import generator, keys
+from blockmaze_tpu_torch.fields.constants import R_MOD
+from blockmaze_tpu_torch.groth16 import generator, keys, verifier
 from blockmaze_tpu_torch.groth16.prover import Prover
+from blockmaze_tpu_torch.ntt import domain as D
 
 # small tensors: one intra-op thread per test process (xdist runs several)
 torch.set_num_threads(1)
