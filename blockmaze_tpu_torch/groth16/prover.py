@@ -96,6 +96,7 @@ class Prover:
         one[0, 0] = 1
         self._one = tf.to_tensor(one, self.device)
         self.timings = {}
+        self.msm_inputs = {}
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -107,9 +108,13 @@ class Prover:
         self.timings[label] = t - t0
         return t
 
-    def _msm(self, curve, pts, scalars, n, blind):
-        return pp.msm(curve, pts, _pad_scalars(scalars, n), self.window,
-                      self.lanes, blind=blind)
+    def _msm(self, name, curve, pts, scalars, n, blind):
+        """One MSM of the proof; its points and padded scalars stay in
+        msm_inputs[name] until the next proof."""
+        scalars = _pad_scalars(scalars, n)
+        self.msm_inputs[name] = (pts, scalars)
+        return pp.msm(curve, pts, scalars, self.window, self.lanes,
+                      blind=blind)
 
     def prove(self, primary: List[int], aux: List[int],
               r: Optional[int] = None, s: Optional[int] = None) -> Proof:
@@ -123,6 +128,7 @@ class Prover:
         r = secrets.randbelow(R_MOD) if r is None else r
         s = secrets.randbelow(R_MOD) if s is None else s
         self.timings = {}
+        self.msm_inputs = {}
         t0 = time.perf_counter()
 
         wires = [1] + list(primary) + list(aux)
@@ -139,13 +145,13 @@ class Prover:
             H_mont[:self.domain.m - 1].contiguous(), self._one)
         t0 = self._lap("qap", t0)
 
-        At = self._msm("g1", self.A, wires_std, self.nA, b1)
+        At = self._msm("A", "g1", self.A, wires_std, self.nA, b1)
         b_scalars = wires_std.index_select(0, self.B_idx)
-        Bt2 = self._msm("g2", self.B2, b_scalars, self.nB, b2)
-        Bt1 = self._msm("g1", self.B1, b_scalars, self.nB, b1)
-        Ht = self._msm("g1", self.H, H_std, self.nH, b1)
-        Lt = self._msm("g1", self.L, wires_std[dpk.primary_input_size + 1:],
-                       self.nL, b1)
+        Bt2 = self._msm("B g2", "g2", self.B2, b_scalars, self.nB, b2)
+        Bt1 = self._msm("B g1", "g1", self.B1, b_scalars, self.nB, b1)
+        Ht = self._msm("H", "g1", self.H, H_std, self.nH, b1)
+        Lt = self._msm("L", "g1", self.L,
+                       wires_std[dpk.primary_input_size + 1:], self.nL, b1)
         t0 = self._lap("msm", t0)
 
         c = self.window

@@ -322,7 +322,7 @@ def combine(curve, keys, pts, cnt, bkt, bcnt, drop: int):
     tail = tc.coord_tail(curve)
     keys = keys.to(torch.int32).contiguous()
     pts = tuple(p.contiguous() for p in pts)
-    kn.check_cuda("msm_combine", keys, *pts, cnt, *bkt, bcnt)
+    kn.check_cuda("msm_combine", keys, *pts, *bkt, counts=(cnt, bcnt))
     while True:
         n = keys.shape[0]
         final = n <= items

@@ -160,17 +160,19 @@ class Kernel:
         self.launches += 1
 
 
-def check_cuda(name: str, *tensors):
-    """Validate what a kernel takes: CUDA, contiguous, int32 (or int64
-    counts, uint8 masks)."""
-    for t in tensors:
+def check_cuda(name: str, *tensors, counts=()):
+    """Validate what a kernel takes: CUDA and contiguous; coordinates, keys
+    and ids int32, masks uint8, and only the tensors passed as `counts`
+    int64."""
+    for t, dtypes in ([(t, (torch.int32, torch.uint8)) for t in tensors]
+                      + [(t, (torch.int64,)) for t in counts]):
         if not t.is_cuda:
             raise ValueError(f"{name}: expected CUDA tensors, got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: expected contiguous tensors")
-        if t.dtype not in (torch.int32, torch.int64, torch.uint8):
-            raise ValueError(f"{name}: expected int32/int64/uint8, got "
-                             f"{t.dtype}")
+        if t.dtype not in dtypes:
+            raise ValueError(f"{name}: expected {' or '.join(map(str, dtypes))}"
+                             f", got {t.dtype}")
 
 
 def on_cpu(*tensors) -> bool:

@@ -5,10 +5,12 @@
 Phases, each timed; any failure raises and the script exits nonzero:
   0. build the CUDA kernels from blockmaze_tpu_torch/csrc (nvcc, sm_90a);
   1. every kernel against its plain torch version on the same CUDA tensors,
-     bit-exact, with kernel and plain times and each kernel's bound; the
-     bucket reduction (msm_combine, msm_triangle, msm_fold) at the prover's
-     MSM shape (32,768 lanes, c = 12, 22 windows), G1 and G2, on real
-     blinded partial sums with runs across many blocks;
+     bit-exact, with kernel and plain times and each kernel's bound, at the
+     shapes the main path gives it: the point kernels at keygen's chunk
+     (2^18 G1, 2^17 G2 lanes), and the MSM kernels (msm_round, msm_combine,
+     msm_triangle, msm_fold) at the mint MSMs' shape (2^18 G1 and 2^17 G2
+     points, 32,768 lanes, c = 12, 22 windows) on real blinded data with
+     runs across many lanes and combine blocks;
   2. MSMs at the prover's sizes against closed forms: sum_i k_i * (i*G)
      = (sum_i i*k_i mod r) * G for 2^18 G1 points and 2^14 G2 points;
   3. the mint circuit end to end: constraints and witness, keygen (seeded
@@ -35,6 +37,7 @@ Products are counted per point operation on the path each input takes
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import random
@@ -265,8 +268,9 @@ def phase1(dev, rng, report):
         lambda: pntt.butterfly_plain(x, tw, span), reps=20),
         m // 2, 2 * nbytes(x) + nbytes(tw))
 
-    # K3, K4, K7, K8 at 2^14 (G1) and 2^12 (G2), with edge lanes
-    for curve, n in (("g1", 1 << 14), ("g2", 1 << 12)):
+    # K3, K4, K7, K8 at keygen's chunk of 2^18 G1 lanes and at 2^17 G2
+    # lanes (the mint's B query fits one chunk), with edge lanes
+    for curve, n in (("g1", 1 << 18), ("g2", 1 << 17)):
         F = tc.ops(curve)
         pr = PRODUCTS[curve]
         P = tuple(rand_coord(curve, rng, n, dev) for _ in range(3))
@@ -307,48 +311,23 @@ def phase1(dev, rng, report):
             lambda: tc.point_mixed_add_noexc(F, Pm, Qa[0], Qa[1], qinf)),
             int((~qinf).sum()) * pr["madd"], madd_bytes)
 
-    # K5: the accumulation at T = 256 lanes, c = 8, blinded, G1 and G2 (on
-    # real points: the exception-free add needs the blind argument)
-    for curve, n in (("g1", 1 << 12), ("g2", 1 << 10)):
-        pts, _ = curve_points(curve, n, dev)
-        sc = torch.from_numpy(rng.integers(0, 1 << 16, (n, 16),
-                                           dtype=np.int64)).to(dev)
-        sc[:, 15] &= 0x3fff
-        sc[5] = 0
-        keys, pids, drop = pp.stream_keys(pts, sc, 8)
-        keys, pids, T, L = pp.pad_stream(keys, pids, drop, 256)
-        _, blind = pp.make_blind(curve, dev)
-
-        def flat(res):
-            acc, meta, head, bkt, cnt = res
-            return tuple(acc) + (meta,) + tuple(head) + tuple(bkt) + (cnt,)
-
-        live = int(((keys < drop) & ~pts[2][pids.long()]).sum())
-        record("msm_round", check(
-            "msm_round", f"{curve} n={n} c=8 T=256 L={L}",
-            lambda: flat(pp.accumulate(curve, keys, pids, pts, blind, T, L,
-                                       drop)),
-            lambda: flat(pp.accumulate_plain(curve, keys, pids, pts, blind,
-                                             T, L, drop)), reps=3),
-            live * PRODUCTS[curve]["madd"],
-            nbytes(keys, pids, pts[0], pts[1], pts[2])
-            + 2 * T * 3 * nbytes(pts[0][0]) + 3 * T * 4)
-
-    # the bucket reduction at the prover's MSM shape
-    for curve, n in (("g1", 1 << 15), ("g2", 1 << 13)):
-        reduction_parity(curve, n, dev, rng, check, record)
+    # the MSM kernels at the mint MSMs' shape: n = nA = nH = nL in G1,
+    # n = nB in G2
+    for curve, n in (("g1", 1 << 18), ("g2", 1 << 17)):
+        msm_parity(curve, n, dev, rng, check, record)
 
 
-def reduction_parity(curve, n, dev, rng, check, record):
-    """msm_combine, msm_triangle and msm_fold against their plain versions
-    on real data at T = 32,768 lanes, c = 12, 22 windows: n points i*G,
-    half of them with scalar 0 or 1 (so window 0's bucket 1 is one run
-    across hundreds of lanes and several combine blocks), half random,
-    accumulated blinded by msm_round."""
+def msm_parity(curve, n, dev, rng, check, record):
+    """msm_round, msm_combine, msm_triangle and msm_fold against their
+    plain versions on real data at T = 32,768 lanes, c = 12, 22 windows: n
+    points i*G, half of them with scalar 0 or 1 (so window 0's bucket 1 is
+    one run across hundreds of lanes and several combine blocks), half
+    random, accumulated blinded (the exception-free mixed add needs real
+    points and a blind)."""
     from blockmaze_tpu_torch.msm import pippenger as pp
     pr = PRODUCTS[curve]
     c, W, nb = WINDOW, pp.n_windows(WINDOW), 1 << WINDOW
-    pts, _ = curve_points(curve, n, dev)
+    pts = curve_points(curve, n, dev)
     sc = torch.from_numpy(rng.integers(0, 1 << 16, (n, 16),
                                        dtype=np.int64)).to(dev)
     sc[:, 15] &= 0x2fff
@@ -357,6 +336,22 @@ def reduction_parity(curve, n, dev, rng, check, record):
     keys, pids, drop = pp.stream_keys(pts, sc, c)
     keys, pids, T, L = pp.pad_stream(keys, pids, drop, LANES)
     _, blind = pp.make_blind(curve, dev)
+
+    def flat(res):
+        acc, meta, head, bkt, cnt = res
+        return tuple(acc) + (meta,) + tuple(head) + tuple(bkt) + (cnt,)
+
+    live = int(((keys < drop) & ~pts[2][pids.long()]).sum())
+    pt_row = 3 * nbytes(pts[0][0])
+    record("msm_round", check(
+        "msm_round", f"{curve} n={n} c={c} T={T} L={L}",
+        lambda: flat(pp.accumulate(curve, keys, pids, pts, blind, T, L,
+                                   drop)),
+        lambda: flat(pp.accumulate_plain(curve, keys, pids, pts, blind, T, L,
+                                         drop)), reps=3),
+        live * pr["madd"],
+        nbytes(keys, pids, *pts) + 2 * T * pt_row + 3 * T * 4
+        + drop * (pt_row + 4))
     acc, meta, head, bkt0, cnt0 = pp.accumulate(curve, keys, pids, pts,
                                                 blind, T, L, drop)
     cnt0 = cnt0.to(torch.int64)
@@ -387,7 +382,6 @@ def reduction_parity(curve, n, dev, rng, check, record):
     fin = torch.zeros(int(rid.max()) + 1, dtype=torch.int64, device=dev)
     fin.index_add_(0, rid[live], finite(bpts[2])[live].long())
     merges = int((fin - 1).clamp(min=0).sum())
-    pt_row = 3 * nbytes(bpts[0][0])
     record("msm_combine", check(
         "msm_combine", f"{curve} 2T={bkeys.shape[0]} blocks of {items}",
         run_kernel, run_plain, reps=5),
@@ -421,9 +415,10 @@ def reduction_parity(curve, n, dev, rng, check, record):
           lambda: pp.fold_plain(curve, 0, edge), reps=1)
 
 
+@functools.lru_cache(maxsize=None)
 def curve_points(curve, n, dev):
-    """Affine points i*G for i = 1..n as device tensors, built by a host
-    chain of additions; returns (points, [host affine])."""
+    """Affine points i*G for i = 1..n as device tensors (X, Y, inf), built
+    by a host chain of additions; built once per (curve, n)."""
     from blockmaze_tpu_torch.curves import host_curve as HC
     from blockmaze_tpu_torch.curves import tcurve as tc
     from blockmaze_tpu_torch.fields import tfield as tf
@@ -436,7 +431,7 @@ def curve_points(curve, n, dev):
         pts.append(add(pts[-1], G))
     x, y, inf = conv(pts)
     return (tf.to_tensor(x, dev), tf.to_tensor(y, dev),
-            torch.from_numpy(inf).to(dev)), pts
+            torch.from_numpy(inf).to(dev))
 
 
 # ---------------------------------------------------------------------------
@@ -454,7 +449,7 @@ def phase2(dev):
     for curve, logn in (("g1", 18), ("g2", 14)):
         n = 1 << logn
         t0 = time.perf_counter()
-        pts, _ = curve_points(curve, n, dev)
+        pts = curve_points(curve, n, dev)
         ks = [py.randrange(R_MOD) for _ in range(n)]
         sc = tf.to_tensor(tf.ints_to_limbs(ks), dev)
         t_in = time.perf_counter() - t0
@@ -576,43 +571,25 @@ def phase3(dev):
             (proofs[1].a, proofs[1].b, proofs[1].c):
         raise AssertionError("two proofs with equal (r, s) differ")
     log("  proofs 0 and 1 (equal r, s; fresh blinds) equal: True")
-    digit_stats(prover, primary, aux)
+    digit_stats(prover)
     profile_prove(prover, primary, aux)
     return keygen_counts, prove_counts
 
 
-def digit_stats(prover, primary, aux):
-    """Per mint MSM: the share of nonzero c-bit digits and the longest run
-    of equal keys in the sorted stream, in items and in lanes."""
-    from blockmaze_tpu_torch.fields import tfield as tf
-    from blockmaze_tpu_torch.groth16 import qap
-    from blockmaze_tpu_torch.groth16.prover import _pad_scalars
+def digit_stats(prover):
+    """Per MSM of the last mint proof, on the points and scalars the prover
+    gave it: the share of nonzero c-bit digits and the longest run of equal
+    keys in the sorted stream, in items and in lanes."""
     from blockmaze_tpu_torch.msm import pippenger as pp
-    from blockmaze_tpu_torch.ntt import pntt
-    dpk, dev, c = prover.dpk, prover.device, prover.window
-    wires = [1] + list(primary) + list(aux)
-    w_std = tf.to_tensor(tf.ints_to_limbs(wires), dev)
-    w_mont = tf.to_tensor(tf.to_mont_host(tf.FR, wires), dev)
-    m = prover.domain.m
-    H = qap.qap_h_arrays(prover.domain, (dpk.num_constraints,
-                                         dpk.primary_input_size),
-                         prover.coos, w_mont, prover.tables)
-    H_std = pntt.mul_elementwise(H[:m - 1].contiguous(), prover._one)
-    cases = (("A g1", prover.A, w_std, prover.nA),
-             ("B g2/g1", prover.B2, w_std.index_select(0, prover.B_idx),
-              prover.nB),
-             ("H g1", prover.H, H_std, prover.nH),
-             ("L g1", prover.L, w_std[dpk.primary_input_size + 1:],
-              prover.nL))
-    for name, pts, sc, n in cases:
-        sc = _pad_scalars(sc, n)
+    c = prover.window
+    for name, (pts, sc) in prover.msm_inputs.items():
         d = pp.digits(sc, c)
         keys, _, drop = pp.stream_keys(pts, sc, c)
         L = -(-keys.shape[0] // prover.lanes)
         live = keys[keys < drop]
         run = int(torch.unique_consecutive(live, return_counts=True)[1]
                   .max()) if live.numel() else 0
-        log(f"  msm {name}: n={n}, nonzero digits "
+        log(f"  msm {name}: n={sc.shape[0]}, nonzero digits "
             f"{float((d != 0).double().mean()):.4f}, longest run {run} "
             f"items = {run / L:.1f} lanes of {L}")
 

@@ -15,6 +15,7 @@ import torch
 from blockmaze_tpu.fields.constants import R_MOD
 from blockmaze_tpu.groth16 import generator as jgen
 from blockmaze_tpu.groth16 import keys as jkeys
+from blockmaze_tpu.groth16 import verifier as jverifier
 from blockmaze_tpu.groth16.prover import Prover as JaxProver
 from blockmaze_tpu_torch.groth16 import generator, keys, verifier
 from blockmaze_tpu_torch.groth16.prover import Prover
@@ -94,9 +95,13 @@ def test_jax_npz_loads_identically(jax_reference, npz_key, tmp_path):
 
 def test_prove_matches_jax(jax_reference, npz_key):
     """Same JAX-built key (through the JAX-written npz) and (r, s) = (7, 9):
-    the port's proof equals the JAX package's, and verifies."""
+    the port's proof equals the JAX package's, and both the JAX package's
+    verifier and the port's copy accept it and reject a wrong input."""
     pb, _, vk, _, proof = jax_reference
     got = Prover(npz_key, "cpu", lanes=64, window=4).prove(
         pb.primary_input(), pb.auxiliary_input(), r=7, s=9)
     assert (got.a, got.b, got.c) == (proof.a, proof.b, proof.c)
-    assert verifier.verify(vk, pb.primary_input(), got)
+    bad = [(pb.primary_input()[0] + 1) % R_MOD]
+    for verify in (jverifier.verify, verifier.verify):
+        assert verify(vk, pb.primary_input(), got)
+        assert not verify(vk, bad, got)
