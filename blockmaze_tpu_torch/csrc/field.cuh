@@ -86,6 +86,46 @@ __device__ __forceinline__ void store_e(int32_t* p, const E& a) {
   }
 }
 
+// The same 16-word element as four 16-byte chunks, chunk q at p[q * stride]
+// (stride 1 in device memory, which must then be 16-byte aligned; a
+// thread's column of a shared-memory ring otherwise).
+__device__ __forceinline__ E load_e4(const int4* p, int stride) {
+  E r;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    int4 w = p[q * stride];
+    r.v[2 * q] = (uint32_t)w.x | ((uint32_t)w.y << 16);
+    r.v[2 * q + 1] = (uint32_t)w.z | ((uint32_t)w.w << 16);
+  }
+  return r;
+}
+
+__device__ __forceinline__ void store_e4(int4* p, const E& a) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    p[q] = make_int4((int)(a.v[2 * q] & 0xffffu), (int)(a.v[2 * q] >> 16),
+                     (int)(a.v[2 * q + 1] & 0xffffu),
+                     (int)(a.v[2 * q + 1] >> 16));
+}
+
+// 8 x 32-bit limbs as two 16-byte words (the FFT's packed scratch layout).
+__device__ __forceinline__ E e_from_int4(int4 lo, int4 hi) {
+  E r;
+  r.v[0] = (uint32_t)lo.x; r.v[1] = (uint32_t)lo.y;
+  r.v[2] = (uint32_t)lo.z; r.v[3] = (uint32_t)lo.w;
+  r.v[4] = (uint32_t)hi.x; r.v[5] = (uint32_t)hi.y;
+  r.v[6] = (uint32_t)hi.z; r.v[7] = (uint32_t)hi.w;
+  return r;
+}
+
+__device__ __forceinline__ int4 e_lo4(const E& a) {
+  return make_int4((int)a.v[0], (int)a.v[1], (int)a.v[2], (int)a.v[3]);
+}
+
+__device__ __forceinline__ int4 e_hi4(const E& a) {
+  return make_int4((int)a.v[4], (int)a.v[5], (int)a.v[6], (int)a.v[7]);
+}
+
 // ---- base field ops, templated on the modulus ----------------------------
 
 template <class M>
@@ -216,6 +256,9 @@ struct Fq {
   E c;
   static constexpr int WORDS = 16;  // int32 words per element in memory
   __device__ static Fq load(const int32_t* p) { return Fq{load_e(p)}; }
+  __device__ static Fq load4(const int4* p, int stride) {
+    return Fq{load_e4(p, stride)};
+  }
   __device__ void store(int32_t* p) const { store_e(p, c); }
   __device__ static Fq zero() { return Fq{zero_e<FqP>()}; }
   __device__ static Fq one() { return Fq{one_e<FqP>()}; }
@@ -240,6 +283,9 @@ struct Fq2 {
   static constexpr int WORDS = 32;
   __device__ static Fq2 load(const int32_t* p) {
     return Fq2{load_e(p), load_e(p + 16)};
+  }
+  __device__ static Fq2 load4(const int4* p, int stride) {
+    return Fq2{load_e4(p, stride), load_e4(p + 4 * stride, stride)};
   }
   __device__ void store(int32_t* p) const {
     store_e(p, c0);

@@ -66,8 +66,9 @@ class Prover:
 
     dpk is a DevicePK of this package or of the JAX package (same fields);
     device is where every tensor lives: the card by default, where the
-    kernels run; "cpu" runs their plain versions. lanes is the MSM
-    accumulation width, window the Pippenger window c."""
+    kernels run; "cpu" runs their plain versions. lanes is the most MSM
+    accumulation lanes (pippenger.lane_cut cuts fewer for a sparse
+    stream), window the Pippenger window c."""
 
     def __init__(self, dpk, device="cuda", lanes: Optional[int] = None,
                  window: Optional[int] = None):
@@ -75,7 +76,7 @@ class Prover:
         self.dpk = dpk
         self.domain = dpk.domain
         cuda = self.device.type == "cuda"
-        self.lanes = lanes or (32768 if cuda else 64)
+        self.lanes = lanes or (pp.MAX_LANES if cuda else 64)
         self.window = window or pp.default_window(dpk.num_variables)
         dk = K.to_device(dpk, self.device)
         m = self.domain.m

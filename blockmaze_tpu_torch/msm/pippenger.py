@@ -2,13 +2,15 @@
 
 Port of blockmaze_tpu/msm/pippenger.py `msm` (the sort-first formulation):
 
-  1. stream_keys: one c-bit digit per scalar and window; per-window stable
-     sort of (window, digit) keys, zero digits and infinity points sent past
-     the live buckets (key DROP);
-  2. accumulate: the sorted stream cut into T contiguous lane ranges; each
-     lane sums its runs of equal keys with mixed adds, flushing every run
-     that starts and ends inside the lane straight into its bucket
-     (kernel msm_round, csrc/pippenger.cu);
+  1. live_stream: one c-bit digit per scalar and window; the live items
+     (nonzero digit, finite point) picked out in order by a stable
+     partition and stably sorted by key = window * 2^c + digit, so they run
+     in (window, digit, point) order; the dead ones, which the JAX stream
+     keeps under key DROP, never enter the accumulation;
+  2. accumulate: the live stream cut into T = min(lanes, live / MIN_ITEMS)
+     contiguous lane ranges; each lane sums its runs of equal keys with
+     mixed adds, flushing every run that starts and ends inside the lane
+     straight into its bucket (kernel msm_round, csrc/pippenger.cu);
   3. boundary combine: each lane's head and tail partial sums, still in key
      order, reduced by key into their buckets by a segmented tree over
      blocks of partials (kernel msm_combine, csrc/combine.cu);
@@ -77,21 +79,57 @@ def digits(scalars, c: int):
     return torch.stack(out)
 
 
-def stream_keys(points, scalars, c: int):
-    """Key-sorted item stream: (keys int32 (W*n,), point ids int32 (W*n,),
-    DROP). Window-major then digit order, stable within a digit."""
-    inf = points[2]
+def _window_keys(points, scalars, c: int):
+    """(keys (W, n) int64 = window * 2^c + digit, live (W, n) bool: digit
+    nonzero and point finite, DROP = W * 2^c)."""
     d = digits(scalars, c)
-    nb = 1 << c
-    W = d.shape[0]
-    drop = W * nb
-    dead = (d == 0) | inf.to(torch.bool)[None, :]
-    dsort = torch.where(dead, torch.full_like(d, nb), d)
-    sdig, order = torch.sort(dsort, dim=1, stable=True)
-    base = (torch.arange(W, device=d.device, dtype=torch.int64) * nb)[:, None]
-    keys = torch.where(sdig < nb, sdig + base, torch.full_like(sdig, drop))
-    return (keys.reshape(-1).to(torch.int32),
-            order.reshape(-1).to(torch.int32), drop)
+    W, nb = d.shape[0], 1 << c
+    live = (d != 0) & ~points[2].to(torch.bool)[None, :]
+    keys = d + (torch.arange(W, device=d.device, dtype=torch.int64)
+                * nb)[:, None]
+    return keys, live, W * nb
+
+
+def _sort_live(keys, live):
+    """The live items as (keys int32, point ids int32) in (window, digit,
+    point) order: a stable partition (nonzero, which reads the live count
+    to the host once) then a stable sort of the live keys alone."""
+    n = keys.shape[1]
+    idx = torch.nonzero(live.reshape(-1)).squeeze(1)
+    skeys, order = torch.sort(keys.reshape(-1)[idx].to(torch.int32),
+                              stable=True)
+    return skeys, (idx[order] % n).to(torch.int32)
+
+
+def live_stream(points, scalars, c: int):
+    """The accumulation's input: (keys int32 (live,), point ids int32
+    (live,), DROP), every key < DROP."""
+    keys, live, drop = _window_keys(points, scalars, c)
+    return _sort_live(keys, live) + (drop,)
+
+
+def stream_keys(points, scalars, c: int):
+    """The JAX package's full key-sorted stream: (keys int32 (W*n,), point
+    ids int32 (W*n,), DROP). Window-major; each window holds its live items
+    in digit order (the live stream's), then its dead items in point order
+    under key DROP."""
+    keys, live, drop = _window_keys(points, scalars, c)
+    W, n = keys.shape
+    dev = keys.device
+    lk, lp = _sort_live(keys, live)
+    nlive = live.sum(1)
+    start = torch.cumsum(nlive, 0) - nlive
+    w = lk.to(torch.int64) // (1 << c)
+    slot = w * n + torch.arange(lk.shape[0], device=dev) - start[w]
+    out_k = torch.full((W * n,), drop, dtype=torch.int32, device=dev)
+    out_p = torch.empty(W * n, dtype=torch.int32, device=dev)
+    out_k[slot] = lk
+    out_p[slot] = lp
+    dead = ~live
+    rank = torch.cumsum(dead, 1) - 1 + nlive[:, None]
+    wi, pi = torch.nonzero(dead, as_tuple=True)
+    out_p[wi * n + rank[wi, pi]] = pi.to(torch.int32)
+    return out_k, out_p, drop
 
 
 # ---------------------------------------------------------------------------
@@ -171,6 +209,9 @@ def accumulate(curve, keys, pids, points, blind, T: int, L: int, drop: int):
     else:
         bx = by = torch.zeros(tail, dtype=torch.int32, device=dev)
     kn.check_cuda("msm_round", keys_t, pids_t, X, Y, pinf, bx, by)
+    if X.data_ptr() % 16 or Y.data_ptr() % 16:
+        raise ValueError("msm_round: point coordinates must be 16-byte "
+                         "aligned (the kernel gathers 16-byte chunks)")
     acc = [torch.empty((T,) + tail, dtype=torch.int32, device=dev)
            for _ in range(3)]
     head = [torch.empty_like(acc[0]) for _ in range(3)]
@@ -452,30 +493,48 @@ def _select(curve, mask, a, b):
     return tuple(tc.ops(curve).select(mask, x, y) for x, y in zip(a, b))
 
 
-def pad_stream(keys, pids, drop: int, lanes: int):
-    """Cut the stream into T = min(lanes, items) lanes of L items, padding
-    the tail with dead items. Returns (keys, pids, T, L)."""
-    total = keys.shape[0]
-    T = max(1, min(lanes, total))
-    L = -(-total // T)
-    pad = T * L - total
+# Fewest live items per lane before the stream is cut into more lanes, and
+# the most lanes (Prover.lanes on the card). The prove path's blinded G1
+# msm_round holds 4 blocks of 128 threads per SM (126 registers, a 32 KB
+# ring each), 67,584 threads on 132 SMs, so the dense H stream fills the
+# card at ~2^16 lanes; PERF.md has the sweep of both values.
+MIN_ITEMS = 4
+MAX_LANES = 65536
+
+
+def lane_cut(live: int, lanes: int, min_items: int = MIN_ITEMS):
+    """(T, L) for `live` items: T = min(lanes, ceil(live / min_items))
+    lanes of L = ceil(live / T) items."""
+    T = max(1, min(lanes, -(-live // min_items)))
+    return T, -(-live // T)
+
+
+def pad_stream(keys, pids, drop: int, T: int, L: int):
+    """The stream padded with dead items (key DROP, point 0) to T*L."""
+    pad = T * L - keys.shape[0]
     if pad:
         dev = keys.device
         keys = torch.cat([keys, torch.full((pad,), drop, dtype=torch.int32,
                                            device=dev)])
         pids = torch.cat([pids, torch.zeros(pad, dtype=torch.int32,
                                             device=dev)])
-    return keys, pids, T, L
+    return keys, pids
 
 
 def msm(curve: str, points, scalars, c: int, lanes: int, blind=None):
     """sum_i scalars_i * points_i as a Jacobian point (X, Y, Z) of int32
     coordinate tensors without batch axis; with blind=(Rx, Ry) the result
-    is (X, Y, Z, wts) with wts the (W,) int64 per-window counts of R."""
+    is (X, Y, Z, wts) with wts the (W,) int64 per-window counts of R.
+    lanes is the most accumulation lanes (lane_cut)."""
     W = n_windows(c)
     nb = 1 << c
-    keys, pids, drop = stream_keys(points, scalars, c)
-    keys, pids, T, L = pad_stream(keys, pids, drop, lanes)
+    keys, pids, drop = live_stream(points, scalars, c)
+    if keys.shape[0] == 0:      # every scalar 0 or every point infinite
+        res = tuple(t[0] for t in _zeros_pts(curve, 1, keys.device))
+        return res if blind is None else res + (
+            torch.zeros(W, dtype=torch.int64, device=keys.device),)
+    T, L = lane_cut(keys.shape[0], lanes)
+    keys, pids = pad_stream(keys, pids, drop, T, L)
     acc, meta, head, bkt, cnt = accumulate(curve, keys, pids, points, blind,
                                            T, L, drop)
     cnt = cnt.to(torch.int64)

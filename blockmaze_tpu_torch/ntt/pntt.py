@@ -1,5 +1,6 @@
-"""Fr kernels of the NTT pipeline: one radix-2 DIT stage and the pointwise
-Montgomery product (csrc/pntt.cu), each beside its plain torch version.
+"""Fr kernels of the NTT pipeline (csrc/pntt.cu), each beside its plain
+torch version: the in-order radix-2 FFT with its stages fused in shared
+memory, one radix-2 DIT stage, and the pointwise Montgomery product.
 
 A wrapper runs the plain version for CPU tensors and the CUDA kernel for
 CUDA tensors; anything else raises. Inputs are (n, 16) limb tensors in
@@ -14,6 +15,10 @@ from ..fields import tfield as tf
 from ..utils import kernels as kn
 
 FR = tf.FR
+
+# Stages per fft pass at most: a tile of 2^10 elements per block
+# (csrc/pntt.cu FFT_TILE_LOG).
+FFT_TILE_LOG = 10
 
 
 def butterfly_plain(a, tw, span: int):
@@ -39,6 +44,59 @@ def butterfly(a, tw, span: int):
     kn.check_cuda("butterfly", a, tw)
     out = torch.empty_like(a)
     kn.K["butterfly"](out, a, tw, m, span)
+    return out
+
+
+def fft_passes(k: int, tile_log: int = FFT_TILE_LOG):
+    """Stage ranges [s0, s1) of the fft kernel's launches for 2^k elements:
+    ceil(k / tile_log) passes (one for k = 0) of nearly equal depth."""
+    n = max(1, -(-k // tile_log))
+    out, s0 = [], 0
+    for i in range(n):
+        d = -(-(k - s0) // (n - i))
+        out.append((s0, s0 + d))
+        s0 += d
+    return out
+
+
+def fft_plain(a, perm, tw):
+    """The in-order DIT FFT as a loop: gather through perm, then stage s
+    over the twiddles tw[2^s - 1 : 2^(s+1) - 1] (tw is the (m - 1, 16)
+    concatenation of the per-stage tables)."""
+    a = a.index_select(0, perm).to(torch.int32)
+    span = 1
+    while span < a.shape[0]:
+        a = butterfly_plain(a, tw[span - 1:2 * span - 1], span)
+        span *= 2
+    return a
+
+
+def fft(a, perm, tw):
+    """In-order radix-2 DIT FFT of m = 2^k rows: out = stages(a[perm]).
+    perm (m,) int32, tw (m - 1, 16) concatenated twiddles, stage s at row
+    2^s - 1. On the card: one launch per pass of fft_passes(k), in tiles
+    of 2^d elements for the deepest pass's d stages."""
+    if kn.on_cpu(a, perm, tw):
+        return fft_plain(a, perm, tw)
+    m = a.shape[0]
+    k = m.bit_length() - 1
+    if m != 1 << k or a.shape != (m, tf.N) or perm.shape != (m,) \
+            or tw.shape != (m - 1, tf.N):
+        raise ValueError(f"fft: bad shapes {tuple(a.shape)}, "
+                         f"{tuple(perm.shape)}, {tuple(tw.shape)}")
+    kn.check_cuda("fft", a, perm, tw)
+    if a.data_ptr() % 16 or tw.data_ptr() % 16:
+        raise ValueError("fft: input and twiddles must be 16-byte aligned "
+                         "(the kernel reads 16-byte chunks)")
+    passes = fft_passes(k)
+    tile_log = passes[0][1]     # the deepest pass: tiles of 2^tile_log
+    out = torch.empty_like(a)
+    scratch = out if len(passes) == 1 else torch.empty(
+        (m, 8), dtype=torch.int32, device=a.device)
+    for i, (s0, s1) in enumerate(passes):
+        first, last = i == 0, i == len(passes) - 1
+        kn.K["fft"](out if last else scratch, a if first else scratch, perm,
+                    tw, k, tile_log, s0, s1, int(first), int(last))
     return out
 
 

@@ -3,11 +3,11 @@
 Port of blockmaze_tpu/ntt/jntt.py's table-driven pipeline: host tables
 (twiddles per stage, bit reversal, coset powers, 1/Z on the coset) built
 once per domain, and the fft/ifft/coset/divide-by-Z operations over
-(m, 16) Montgomery limb tensors. Every FFT stage runs through
-pntt.butterfly and every Montgomery product through pntt.mul_elementwise
-(the CUDA kernels on the card, their plain versions on the CPU); the step
-domain's adds and subs stay plain torch, as they were XLA in the JAX
-package.
+(m, 16) Montgomery limb tensors. Every power-of-two FFT runs through
+pntt.fft (bit-reversal gather and all stages) and every Montgomery product
+through pntt.mul_elementwise (the CUDA kernels on the card, their plain
+versions on the CPU); the step domain's adds and subs stay plain torch, as
+they were XLA in the JAX package.
 """
 
 from __future__ import annotations
@@ -142,13 +142,16 @@ def qap_tables(domain) -> dict:
 
 
 def tables_to(T: dict, device) -> dict:
-    """qap_tables on `device`: limbs as int32, permutations as int64."""
+    """qap_tables on `device`: limbs as int32, permutations as int32, and
+    each direction's per-stage twiddle tables as one (m - 1, 16) tensor,
+    stage s at row 2^s - 1 (what pntt.fft takes)."""
     out = {}
     for k, v in T.items():
         if isinstance(v, tuple):
-            out[k] = tuple(tf.to_tensor(x, device) for x in v)
+            out[k] = tf.to_tensor(np.concatenate(v) if v else
+                                  np.zeros((0, tf.N), np.uint32), device)
         elif k.endswith("perm"):
-            out[k] = torch.from_numpy(np.asarray(v, np.int64)).to(device)
+            out[k] = torch.from_numpy(np.asarray(v, np.int32)).to(device)
         else:
             out[k] = tf.to_tensor(v, device)
     return out
@@ -166,14 +169,10 @@ def _sub(a, b):
     return tf.sub(FR, a, b).to(torch.int32)
 
 
-def fft_with(a, perm, stages):
-    """In-order Cooley-Tukey DIT FFT (_basic_serial_radix2_FFT)."""
-    a = a.index_select(0, perm).contiguous()
-    span = 1
-    for tw in stages:
-        a = pntt.butterfly(a, tw, span)
-        span *= 2
-    return a
+def fft_with(a, perm, tw):
+    """In-order Cooley-Tukey DIT FFT (_basic_serial_radix2_FFT) with the
+    concatenated twiddles of tables_to: one pntt.fft."""
+    return pntt.fft(a.contiguous(), perm, tw)
 
 
 def fft_t(domain, a, T):

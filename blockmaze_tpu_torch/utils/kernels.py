@@ -5,9 +5,11 @@ The sources in blockmaze_tpu_torch/csrc are compiled at first use with
          -Xcompiler -fPIC
 into blockmaze_tpu_torch/_build/ (one shared library with a plain C
 interface, named by a hash of the sources, so an edit rebuilds; one nvcc
-process per .cu file), and loaded with ctypes. Every entry point takes int32/uint8 device pointers and the
-current stream, launches, and returns cudaGetLastError(); a nonzero code
-raises. A failed build or load raises too: there is no fallback.
+process per .cu file, all started together; build(verbose=True) prints
+each file's seconds and ptxas report), and loaded with ctypes. Every
+entry point takes int32/uint8 device pointers and the current stream,
+launches, and returns cudaGetLastError(); a nonzero code raises. A failed
+build or load raises too: there is no fallback.
 
 Each kernel has a `Kernel` object whose `launches` count goes up by one
 each time its wrapper launches it, so a run can show which kernels it went
@@ -22,6 +24,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 
 import torch
 
@@ -40,6 +43,7 @@ CURVE_ID = {"g1": 1, "g2": 2}
 
 # C entry points and their argument types (csrc/*.cu).
 SIGNATURES = {
+    "bm_fft_pass": [_P] * 4 + [_I] * 6 + [_P],
     "bm_butterfly_stage": [_P, _P, _P, _LL, _LL, _P],
     "bm_mul_elementwise": [_P, _P, _P, _LL, _I, _P],
     "bm_point_add": [_I] + [_P] * 9 + [_LL, _P],
@@ -97,16 +101,26 @@ def build(verbose: bool = False) -> str:
             obj = os.path.join(tmp, os.path.basename(src) + ".o")
             cmd = [nvcc, *compile_flags, *(["-Xptxas", "-v"] if verbose
                                            else []), "-c", src, "-o", obj]
-            procs.append((obj, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)))
+            out = open(obj + ".log", "w+")
+            procs.append((src, obj, out, subprocess.Popen(
+                cmd, stdout=out, stderr=subprocess.STDOUT)))
+        t0 = time.perf_counter()
+        secs = {}
+        while len(secs) < len(procs):
+            for src, _, _, proc in procs:
+                if src not in secs and proc.poll() is not None:
+                    secs[src] = time.perf_counter() - t0
+            time.sleep(0.05)
         objs, errors = [], []
-        for obj, proc in procs:
-            out, _ = proc.communicate()
+        for src, obj, out, proc in procs:
+            out.seek(0)
+            text = out.read()
+            out.close()
             if verbose:
-                print(out, flush=True)
+                print(f"{os.path.basename(src)}: {secs[src]:.1f}s\n{text}",
+                      flush=True)
             if proc.returncode != 0:
-                errors.append(out)
+                errors.append(text)
             objs.append(obj)
         if errors:
             raise BuildError("nvcc failed:\n" + "\n".join(errors))
@@ -187,6 +201,10 @@ def on_cpu(*tensors) -> bool:
 
 
 K = {
+    # the whole FFT (bit-reversal gather + every stage), one launch per pass;
+    # the prove path's counterpart of the per-stage TPU butterfly
+    "fft": Kernel("fft", "bm_fft_pass", "blockmaze_tpu_torch/csrc/pntt.cu",
+                  "blockmaze_tpu/ntt/pntt.py:30"),
     "butterfly": Kernel("butterfly", "bm_butterfly_stage",
                         "blockmaze_tpu_torch/csrc/pntt.cu",
                         "blockmaze_tpu/ntt/pntt.py:30"),

@@ -6,22 +6,29 @@ Phases, each timed; any failure raises and the script exits nonzero:
   0. build the CUDA kernels from blockmaze_tpu_torch/csrc (nvcc, sm_90a);
   1. every kernel against its plain torch version on the same CUDA tensors,
      bit-exact, with kernel and plain times and each kernel's bound, at the
-     shapes the main path gives it: the point kernels at keygen's chunk
-     (2^18 G1, 2^17 G2 lanes), and the MSM kernels (msm_round, msm_combine,
+     shapes the main path gives it: fft at mint's 2^17 and 2^16 and send's
+     2^18, forward and inverse tables; the point kernels at keygen's chunk
+     (2^18 G1, 2^17 G2 lanes); the MSM kernels (msm_round, msm_combine,
      msm_triangle, msm_fold) at the mint MSMs' shape (2^18 G1 and 2^17 G2
-     points, 32,768 lanes, c = 12, 22 windows) on real blinded data with
-     runs across many lanes and combine blocks;
+     points, c = 12, 22 windows) on real blinded data cut as msm cuts its
+     live stream, with runs across many lanes and combine blocks; and
+     msm_round on a full stream with dead items and infinity points;
   2. MSMs at the prover's sizes against closed forms: sum_i k_i * (i*G)
      = (sum_i i*k_i mod r) * G for 2^18 G1 points and 2^14 G2 points;
   3. the mint circuit end to end: constraints and witness, keygen (seeded
      toxic waste), Prover on cuda:0, three proofs, each verified by the host
-     verifier, and two proofs with equal (r, s) equal.
+     verifier, and two proofs with equal (r, s) equal; then msm_round on the
+     proof's own five live streams (timed, and bit-exact against its plain
+     version on the sparse A and the dense H stream), the MSMs' time over a
+     sweep of lane counts, and a profiled proof.
 The launch counts are reset just before keygen and read just after it, and
 reset again just before the three proofs and read just after them: each
 path must launch each of its kernels, and the prove path must not launch
 the batched point kernels (add, double), which the bucket reduction
-replaced there. double (K4) is on neither path any more; phase 1 holds it
-against its plain version. The second-to-last line is the kernel table as
+replaced there, nor the single-stage butterfly, which fft replaced (at
+most 28 fft launches per proof: two passes for each of 14 FFTs). double
+(K4) is on neither path any more; phase 1 holds it against its plain
+version. The second-to-last line is the kernel table as
 JSON; the last line is the result JSON. With no GPU it exits nonzero before
 printing either.
 
@@ -32,7 +39,8 @@ and IMAD count / 16.7 T/s. One Montgomery product of 256-bit operands (8 x
 the reduction factors. 16.7 T/s = 132 SMs x 64 IMAD per clock x 1.98 GHz,
 half the float32 FMA rate behind the 67 TFLOP/s of the card's data sheet.
 Products are counted per point operation on the path each input takes
-(G1/G2 Fq products: add 16/43, double 7/16, mixed add 11/29).
+(G1/G2 Fq products: add 16/43, double 7/16, mixed add 11/29; msm_round one
+mixed add per live item), and per butterfly for fft (k * 2^(k-1)).
 """
 
 from __future__ import annotations
@@ -49,19 +57,19 @@ import numpy as np
 import torch
 
 SEED = 20261016
-LANES = 32768          # the prover's MSM accumulation width
 WINDOW = 12            # its Pippenger window at the mint's sizes
 MEM_RATE = 3.35e12     # bytes/s
 IMAD_RATE = 132 * 64 * 1.98e9
 IMAD_PER_PRODUCT = 264
 PRODUCTS = {"g1": {"add": 16, "dbl": 7, "madd": 11},
             "g2": {"add": 43, "dbl": 16, "madd": 29}}
-ORDER = ["butterfly", "mul_elementwise", "add", "double", "msm_round",
+ORDER = ["fft", "butterfly", "mul_elementwise", "add", "double", "msm_round",
          "msm_combine", "msm_triangle", "msm_fold", "mixed_add",
          "mixed_add_noexc"]
 KEYGEN_PATH = ["add", "mixed_add", "mixed_add_noexc"]
-PROVE_PATH = ["butterfly", "mul_elementwise", "msm_round", "msm_combine",
+PROVE_PATH = ["fft", "mul_elementwise", "msm_round", "msm_combine",
               "msm_triangle", "msm_fold"]
+FFTS_PER_PROOF = 14    # mint: 7 step-domain FFTs of a 2^17 and a 2^16 part
 
 
 def log(*a):
@@ -139,7 +147,7 @@ def main():
 
     # ---- phase 3: mint end to end ----------------------------------------
     t0 = time.perf_counter()
-    keygen_counts, prove_counts = phase3(dev)
+    keygen_counts, prove_counts = phase3(dev, report)
     log(f"phase 3 mint: {time.perf_counter() - t0:.1f}s")
     for name in kn.K:
         report[name]["launches"] = (keygen_counts or {}).get(name, 0) \
@@ -206,6 +214,42 @@ def nbytes(*tensors) -> int:
 # Phase 1: each kernel against its plain version on the card
 # ---------------------------------------------------------------------------
 
+def record_kernel(report, key, res, products, moved, primary=False):
+    """Keep the first shape's times and bound (or this one's, if primary);
+    every shape's error."""
+    err, ms, pms = res
+    b_ms, b_by = bound(products, moved)
+    log(f"  {'':<16} bound {b_ms:.5f} ms ({b_by}: {products} products, "
+        f"{moved} bytes)")
+    r = report[key]
+    r["max_abs_err"] = max(err, r.get("max_abs_err", 0))
+    if primary or "ms" not in r:
+        r.update(ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by)
+
+
+def check_kernel(name, shape, kern, plain, reps=5):
+    """Kernel against plain on the same inputs: (max_abs_err, kernel ms,
+    plain ms); raises unless bit-exact."""
+    got = kern()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = plain()
+    end.record()
+    torch.cuda.synchronize()
+    pms = start.elapsed_time(end)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = max_abs_err(got, want)
+    ok = same(got, want)
+    ms = timed(kern, reps)
+    log(f"  {name:<16} {shape:<40} bit-exact={ok} max_abs_err={err} "
+        f"kernel {ms:.4f} ms  plain {pms:.3f} ms")
+    if not ok:
+        raise AssertionError(f"{name}: kernel != plain at {shape}")
+    return err, ms, pms
+
+
 def phase1(dev, rng, report):
     from blockmaze_tpu_torch.curves import pcurve as pc
     from blockmaze_tpu_torch.curves import tcurve as tc
@@ -213,45 +257,17 @@ def phase1(dev, rng, report):
     from blockmaze_tpu_torch.msm import pippenger as pp
     from blockmaze_tpu_torch.ntt import pntt
 
-    def check(name, shape, kern, plain, reps=5):
-        got = kern()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        want = plain()
-        end.record()
-        torch.cuda.synchronize()
-        pms = start.elapsed_time(end)
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        err = max_abs_err(got, want)
-        ok = same(got, want)
-        ms = timed(kern, reps)
-        log(f"  {name:<16} {shape:<40} bit-exact={ok} max_abs_err={err} "
-            f"kernel {ms:.4f} ms  plain {pms:.3f} ms")
-        if not ok:
-            raise AssertionError(f"{name}: kernel != plain at {shape}")
-        return err, ms, pms
-
-    def record(key, res, products, moved):
-        """Keep the first (G1) shape's times and bound; every shape's
-        error."""
-        err, ms, pms = res
-        b_ms, b_by = bound(products, moved)
-        log(f"  {'':<16} bound {b_ms:.5f} ms ({b_by}: {products} products, "
-            f"{moved} bytes)")
-        r = report[key]
-        r["max_abs_err"] = max(err, r.get("max_abs_err", 0))
-        if "ms" not in r:
-            r.update(ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by)
+    check = check_kernel
+    record = functools.partial(record_kernel, report)
 
     # warm the plain path's torch kernels so its first timing is not a
     # measure of CUDA module loading
     w = rand_field(rng, (4,), dev)
     pntt.mul_elementwise_plain(w, w)
     tf.sub(tf.FQ, w, w)
+    fft_parity(dev, rng, check, record)
     # K2: pointwise Fr product, 2^16 elements; K1: one stage of 2^16
-    # butterflies (span 2^15, the last stage of mint's 2^17 FFT)
+    # butterflies (span 2^15, the second-to-last stage of a 2^17 FFT)
     a = rand_field(rng, (1 << 16,), dev)
     b = rand_field(rng, (1 << 16,), dev)
     record("mul_elementwise", check(
@@ -317,13 +333,53 @@ def phase1(dev, rng, report):
         msm_parity(curve, n, dev, rng, check, record)
 
 
+def fft_parity(dev, rng, check, record):
+    """fft against its plain version (gather, then one butterfly_plain per
+    stage) with the tables the prover moves to the card: mint's step domain
+    (its 2^17 and 2^16 parts) and send's basic 2^18, forward and inverse."""
+    from blockmaze_tpu_torch.ntt import domain as TD
+    from blockmaze_tpu_torch.ntt import pntt, tntt
+    from blockmaze_tpu_torch.fields.constants import R_MOD
+    mint = tntt.tables_to(tntt.qap_tables(
+        TD.get_evaluation_domain((1 << 17) + (1 << 16))), dev)
+    send = TD.get_evaluation_domain(1 << 18)
+    cases = [(f"{p}{d} 2^{k}", mint[p + "perm"], mint[p + d])
+             for p, k in (("big_", 17), ("small_", 16))
+             for d in ("fwd", "inv")]
+    for d, omega in (("fwd", send.omega), ("inv", pow(send.omega, -1,
+                                                       R_MOD))):
+        perm, stages = tntt._fft_tables(send.m, omega)
+        t = tntt.tables_to({"perm": perm, "tw": tuple(stages)}, dev)
+        cases.append((f"basic {d} 2^18", t["perm"], t["tw"]))
+    for name, perm, tw in cases:
+        m = perm.shape[0]
+        k = m.bit_length() - 1
+        a = rand_field(rng, (m,), dev)
+        record("fft", check(
+            "fft", f"Fr {name} ({len(pntt.fft_passes(k))} passes)",
+            lambda: pntt.fft(a, perm, tw),
+            lambda: pntt.fft_plain(a, perm, tw), reps=20),
+            k * m // 2, 2 * nbytes(a) + nbytes(perm, tw))
+
+
+def accumulate_bytes(curve, keys, pids, live, pts, T, drop):
+    """Bytes msm_round must move: the stream, each distinct point of its
+    live items once, the T lanes' outputs and the bucket arrays."""
+    pt_row = 3 * nbytes(pts[0][0])
+    used = int(torch.unique(pids[:live]).numel())
+    return (nbytes(keys, pids) + used * (2 * nbytes(pts[0][0]) + 1)
+            + 2 * T * pt_row + 3 * T * 4 + drop * (pt_row + 4))
+
+
 def msm_parity(curve, n, dev, rng, check, record):
     """msm_round, msm_combine, msm_triangle and msm_fold against their
-    plain versions on real data at T = 32,768 lanes, c = 12, 22 windows: n
-    points i*G, half of them with scalar 0 or 1 (so window 0's bucket 1 is
-    one run across hundreds of lanes and several combine blocks), half
-    random, accumulated blinded (the exception-free mixed add needs real
-    points and a blind)."""
+    plain versions on real data at c = 12, 22 windows: n points i*G, half
+    of them with scalar 0 or 1 (so window 0's bucket 1 is one run across
+    many lanes and several combine blocks), half random, accumulated
+    blinded (the exception-free mixed add needs real points and a blind),
+    on the live stream cut as msm cuts it. Then msm_round alone on the
+    JAX package's full stream (dead items, a tenth of the points at
+    infinity) of 2^14 points at 4,096 lanes, unblinded."""
     from blockmaze_tpu_torch.msm import pippenger as pp
     pr = PRODUCTS[curve]
     c, W, nb = WINDOW, pp.n_windows(WINDOW), 1 << WINDOW
@@ -333,25 +389,32 @@ def msm_parity(curve, n, dev, rng, check, record):
     sc[:, 15] &= 0x2fff
     sc[: n // 2] = 0
     sc[: n // 2, 0] = torch.from_numpy(rng.integers(0, 2, n // 2)).to(dev)
-    keys, pids, drop = pp.stream_keys(pts, sc, c)
-    keys, pids, T, L = pp.pad_stream(keys, pids, drop, LANES)
+    keys, pids, drop = pp.live_stream(pts, sc, c)
+    live = keys.shape[0]
+    T, L = pp.lane_cut(live, pp.MAX_LANES)
+    keys, pids = pp.pad_stream(keys, pids, drop, T, L)
     _, blind = pp.make_blind(curve, dev)
-
-    def flat(res):
-        acc, meta, head, bkt, cnt = res
-        return tuple(acc) + (meta,) + tuple(head) + tuple(bkt) + (cnt,)
-
-    live = int(((keys < drop) & ~pts[2][pids.long()]).sum())
     pt_row = 3 * nbytes(pts[0][0])
     record("msm_round", check(
-        "msm_round", f"{curve} n={n} c={c} T={T} L={L}",
-        lambda: flat(pp.accumulate(curve, keys, pids, pts, blind, T, L,
-                                   drop)),
-        lambda: flat(pp.accumulate_plain(curve, keys, pids, pts, blind, T, L,
-                                         drop)), reps=3),
+        "msm_round", f"{curve} n={n} c={c} live={live} T={T} L={L}",
+        lambda: flat_acc(pp.accumulate(curve, keys, pids, pts, blind, T, L,
+                                       drop)),
+        lambda: flat_acc(pp.accumulate_plain(curve, keys, pids, pts, blind,
+                                             T, L, drop)), reps=3),
         live * pr["madd"],
-        nbytes(keys, pids, *pts) + 2 * T * pt_row + 3 * T * 4
-        + drop * (pt_row + 4))
+        accumulate_bytes(curve, keys, pids, live, pts, T, drop))
+    m = 1 << 14
+    fpts = tuple(t[n - m:].clone() for t in pts)
+    fpts[2][::10] = True
+    fk, fp, _ = pp.stream_keys(fpts, sc[n - m:], c)
+    fT = 4096
+    fL = -(-fk.shape[0] // fT)
+    fk, fp = pp.pad_stream(fk, fp, drop, fT, fL)
+    check("msm_round", f"{curve} full stream n={m} T={fT} L={fL}",
+          lambda: flat_acc(pp.accumulate(curve, fk, fp, fpts, None, fT, fL,
+                                         drop)),
+          lambda: flat_acc(pp.accumulate_plain(curve, fk, fp, fpts, None,
+                                               fT, fL, drop)), reps=3)
     acc, meta, head, bkt0, cnt0 = pp.accumulate(curve, keys, pids, pts,
                                                 blind, T, L, drop)
     cnt0 = cnt0.to(torch.int64)
@@ -415,6 +478,11 @@ def msm_parity(curve, n, dev, rng, check, record):
           lambda: pp.fold_plain(curve, 0, edge), reps=1)
 
 
+def flat_acc(res):
+    acc, meta, head, bkt, cnt = res
+    return tuple(acc) + (meta,) + tuple(head) + tuple(bkt) + (cnt,)
+
+
 @functools.lru_cache(maxsize=None)
 def curve_points(curve, n, dev):
     """Affine points i*G for i = 1..n as device tensors (X, Y, inf), built
@@ -458,10 +526,11 @@ def phase2(dev):
         for rep in range(2):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            res = pp.msm(curve, pts, sc, c, LANES, blind=blind)
+            res = pp.msm(curve, pts, sc, c, pp.MAX_LANES, blind=blind)
             torch.cuda.synchronize()
             t_msm = time.perf_counter() - t0
-            log(f"  msm {curve} n=2^{logn} c={c} lanes={LANES} run {rep}: "
+            log(f"  msm {curve} n=2^{logn} c={c} lanes={pp.MAX_LANES} run "
+                f"{rep}: "
                 f"{t_msm * 1e3:.1f} ms")
         to_host = tc.g1_jacobian_to_host if curve == "g1" \
             else tc.g2_jacobian_to_host
@@ -507,7 +576,7 @@ def check_launches(path, counts, expected, forbidden=()):
                            f"longer uses: {stray}")
 
 
-def phase3(dev):
+def phase3(dev, report):
     from blockmaze_tpu_torch.groth16 import generator, verifier
     from blockmaze_tpu_torch.groth16.prover import Prover
     from blockmaze_tpu_torch.utils import kernels as kn
@@ -556,9 +625,12 @@ def phase3(dev):
     prove_counts = kn.counts()
     check_launches("prove path (3 proofs)", prove_counts, PROVE_PATH,
                    forbidden=("add", "double", "mixed_add",
-                              "mixed_add_noexc"))
+                              "mixed_add_noexc", "butterfly"))
     log("  per proof: " + json.dumps(
         {k: v / 3 for k, v in prove_counts.items() if v}))
+    if prove_counts["fft"] > 3 * 2 * FFTS_PER_PROOF:
+        raise RuntimeError(f"prove path: {prove_counts['fft'] / 3} fft "
+                           f"launches per proof, more than two per FFT")
     log("  double (K4) runs on neither path; phase 1 holds it against its "
         "plain version")
     for i, proof in enumerate(proofs):
@@ -572,31 +644,120 @@ def phase3(dev):
         raise AssertionError("two proofs with equal (r, s) differ")
     log("  proofs 0 and 1 (equal r, s; fresh blinds) equal: True")
     digit_stats(prover)
+    mint_stream_parity(prover, report)
+    lane_sweep(prover)
     profile_prove(prover, primary, aux)
     return keygen_counts, prove_counts
 
 
 def digit_stats(prover):
     """Per MSM of the last mint proof, on the points and scalars the prover
-    gave it: the share of nonzero c-bit digits and the longest run of equal
-    keys in the sorted stream, in items and in lanes."""
+    gave it: the share of nonzero c-bit digits, the live items and the
+    lanes (T of L items) msm cuts them into, and the longest run of equal
+    keys, in items and in lanes."""
     from blockmaze_tpu_torch.msm import pippenger as pp
     c = prover.window
     for name, (pts, sc) in prover.msm_inputs.items():
         d = pp.digits(sc, c)
-        keys, _, drop = pp.stream_keys(pts, sc, c)
-        L = -(-keys.shape[0] // prover.lanes)
-        live = keys[keys < drop]
-        run = int(torch.unique_consecutive(live, return_counts=True)[1]
-                  .max()) if live.numel() else 0
+        keys, _, _ = pp.live_stream(pts, sc, c)
+        live = keys.shape[0]
+        T, L = pp.lane_cut(live, prover.lanes) if live else (0, 0)
+        run = int(torch.unique_consecutive(keys, return_counts=True)[1]
+                  .max()) if live else 0
         log(f"  msm {name}: n={sc.shape[0]}, nonzero digits "
-            f"{float((d != 0).double().mean()):.4f}, longest run {run} "
-            f"items = {run / L:.1f} lanes of {L}")
+            f"{float((d != 0).double().mean()):.4f}, live items {live}, "
+            f"T={T} L={L}, longest run {run} items = "
+            f"{run / max(L, 1):.1f} lanes")
+
+
+def mint_stream_parity(prover, report):
+    """msm_round on the five live streams of the last mint proof, cut as the
+    prover cuts them, blinded: kernel time and bound for each, and the
+    plain version bit-exact on the sparse A and the dense H stream. The
+    kernel table's msm_round row is the H stream's (the main path's
+    heaviest launch); the sums are per proof."""
+    from blockmaze_tpu_torch.msm import pippenger as pp
+    c = prover.window
+    tot_ms = tot_bound = 0.0
+    for name, (pts, sc) in prover.msm_inputs.items():
+        curve = "g2" if name == "B g2" else "g1"
+        keys, pids, drop = pp.live_stream(pts, sc, c)
+        live = keys.shape[0]
+        T, L = pp.lane_cut(live, prover.lanes)
+        keys, pids = pp.pad_stream(keys, pids, drop, T, L)
+        _, blind = pp.make_blind(curve, pts[0].device)
+
+        def kern():
+            return flat_acc(pp.accumulate(curve, keys, pids, pts, blind, T,
+                                          L, drop))
+
+        products = live * PRODUCTS[curve]["madd"]
+        moved = accumulate_bytes(curve, keys, pids, live, pts, T, drop)
+        shape = f"mint {name} live={live} T={T} L={L}"
+        if name in ("A", "H"):
+            res = check_kernel(
+                "msm_round", shape, kern,
+                lambda: flat_acc(pp.accumulate_plain(
+                    curve, keys, pids, pts, blind, T, L, drop)), reps=5)
+            record_kernel(report, "msm_round", res, products, moved,
+                          primary=name == "H")
+            ms = res[1]
+        else:
+            ms = timed(kern, 5)
+            b_ms, b_by = bound(products, moved)
+            log(f"  {'msm_round':<16} {shape:<40} kernel {ms:.4f} ms")
+            log(f"  {'':<16} bound {b_ms:.5f} ms ({b_by}: {products} "
+                f"products, {moved} bytes)")
+        tot_ms += ms
+        tot_bound += bound(products, moved)[0]
+    log(f"  msm_round per mint proof (5 streams): kernel {tot_ms:.4f} ms, "
+        f"bound {tot_bound:.5f} ms")
+
+
+def lane_sweep(prover):
+    """Device ms per mint proof of what the lane cut changes, msm_round plus
+    msm_combine over the five live streams of the last proof (blinded;
+    CUDA events, 3 launches each), for each most-lanes and fewest-items
+    value: the combine's partials grow with the lanes, the accumulation's
+    chains with the items a lane."""
+    from blockmaze_tpu_torch.msm import pippenger as pp
+    c = prover.window
+    streams = []
+    for name, (pts, sc) in prover.msm_inputs.items():
+        curve = "g2" if name == "B g2" else "g1"
+        streams.append((curve, pts, pp.live_stream(pts, sc, c),
+                        pp.make_blind(curve, pts[0].device)[1]))
+
+    def cost(curve, pts, stream, blind, lanes, min_items):
+        keys, pids, drop = stream
+        T, L = pp.lane_cut(keys.shape[0], lanes, min_items)
+        keys, pids = pp.pad_stream(keys, pids, drop, T, L)
+        acc_ms = timed(lambda: pp.accumulate(curve, keys, pids, pts, blind,
+                                             T, L, drop), 3)
+        acc, meta, head, bkt, cnt = pp.accumulate(curve, keys, pids, pts,
+                                                  blind, T, L, drop)
+        parts = pp.boundary_partials(curve, acc, meta, head)
+        cnt = cnt.to(torch.int64)
+        return acc_ms + timed(lambda: pp.combine(curve, *parts, bkt, cnt,
+                                                 drop), 3)
+
+    log(f"  lane sweep: msm_round + msm_combine device ms per mint proof "
+        f"(prover: lanes={prover.lanes}, min_items={pp.MIN_ITEMS})")
+    for lanes in (8192, 16384, 32768, 65536, 131072):
+        row = []
+        for min_items in (2, 4, 8, 16, 32):
+            ms = sum(cost(*st, lanes, min_items) for st in streams)
+            row.append(f"min_items={min_items}: {ms:.4f}")
+        log(f"    lanes={lanes}: " + ", ".join(row))
 
 
 def profile_prove(prover, primary, aux):
     """One more steady proof under torch.profiler: device time by kernel
-    and the device's busy share of the proof's wall time."""
+    and the device's busy share of the proof's wall time. Busy time sums
+    the device's own rows (kernels, copies) once each; an operator's row
+    repeats the device time of the kernels it launched, so the sum over
+    every row counts torch's own kernels twice and is printed apart."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -610,16 +771,29 @@ def profile_prove(prover, primary, aux):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0))
 
-    rows = [(e.key, dev_us(e), e.count) for e in prof.key_averages()
-            if dev_us(e) > 0]
+    rows = [(e.key, dev_us(e), e.count, e.device_type == DeviceType.CUDA)
+            for e in prof.key_averages() if dev_us(e) > 0]
     rows.sort(key=lambda r: -r[1])
-    busy = sum(r[1] for r in rows) / 1e6
+    busy = sum(r[1] for r in rows if r[3]) / 1e6
+    every_row = sum(r[1] for r in rows) / 1e6
     phases = {k: round(v, 4) for k, v in prover.timings.items()}
     log(f"  profiled steady prove: wall {wall:.3f}s (profiler on), device "
-        f"busy {busy * 1e3:.1f} ms = {100 * busy / wall:.1f}% of wall; "
+        f"busy {busy * 1e3:.1f} ms = {100 * busy / wall:.1f}% of wall "
+        f"(sum over every profiler row {every_row * 1e3:.1f} ms); "
         f"phases {json.dumps(phases)}")
-    for key, us, n in rows[:16]:
+    for key, us, n, _ in [r for r in rows if r[3]][:16]:
         log(f"    {us / 1e3:9.3f} ms  {n:6d}x  {key[:90]}")
+    log("  the port's kernels in that proof (device ms, launches):")
+    for tag in ("accumulate_kernel<bm::Fq,", "accumulate_kernel<bm::Fq2,",
+                "fft_pass_kernel", "butterfly_stage_kernel",
+                "mul_elementwise_kernel", "combine_kernel<bm::Fq>",
+                "combine_kernel<bm::Fq2>", "triangle_kernel<bm::Fq>",
+                "triangle_kernel<bm::Fq2>", "fold_kernel<bm::Fq>",
+                "fold_kernel<bm::Fq2>", "aten::sort", "RadixSort",
+                "aten::nonzero"):
+        hit = [(us, n) for key, us, n, _ in rows if tag in key]
+        log(f"    {tag:<30} {sum(u for u, _ in hit) / 1e3:9.3f} ms "
+            f"{sum(n for _, n in hit):5d}x")
 
 
 if __name__ == "__main__":

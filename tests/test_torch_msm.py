@@ -1,9 +1,12 @@
 """blockmaze_tpu_torch Pippenger MSM (plain versions of the msm_round,
-add, double and msm_fold kernels) against the host oracle, against the JAX
-package's MSM, and its accumulation step against the JAX round loop
-(_item_step). Window c = 8, lanes <= 64. The cases are those of
-tests/test_msm.py: G1 and G2, blinded and not, duplicate points in one
-bucket, every scalar equal, zero scalars and infinity points."""
+msm_combine, msm_triangle and msm_fold kernels) against the host oracle,
+against the JAX package's MSM, and its accumulation step against the JAX
+round loop (_item_step), on the JAX package's full stream and on the live
+stream the MSM feeds it. Window c = 8, lanes <= 64. The cases are those of
+tests/test_msm.py (G1 and G2, blinded and not, duplicate points in one
+bucket, every scalar equal, zero scalars and infinity points) and those of
+the live stream: bit scalars with more lanes than live items, no live item
+at all, a single one."""
 
 import random
 
@@ -120,32 +123,11 @@ def test_msm_matches_jax_msm_auto():
     assert got == want
 
 
-@pytest.mark.parametrize("curve,blind", [("g1", True), ("g2", False)])
-def test_stream_and_accumulation_match_jax_rounds(curve, blind):
-    """stream_keys equals the JAX package's (same stable per-window sort),
-    and the accumulation's acc/meta/head/buckets equal what one JAX round
-    (_xla_round over _item_step) leaves, scattered into the buckets."""
-    rng = random.Random(13)
-    n, T = 12, 8
-    pts = make_points(curve, rng, n)
-    pts[3] = HC.G1_ZERO if curve == "g1" else HC.G2_ZERO
-    scalars = [rng.randrange(R_MOD) for _ in range(n)]
-    scalars[2] = scalars[5]
-    P, S = to_tensors(curve, pts, scalars)
-    keys, pids, drop = pp.stream_keys(P, S, C)
-    jP = tuple(jnp.asarray(t.numpy()) for t in P)
-    _, jkeys, jpids, jdrop = jpp.stream_keys(
-        curve, (jP[0].astype(jnp.uint32), jP[1].astype(jnp.uint32), jP[2]),
-        jnp.asarray(S.numpy().astype(np.uint32)), C)
-    assert int(jdrop) == drop
-    assert np.array_equal(keys.numpy(), np.asarray(jkeys).astype(np.int64))
-    assert np.array_equal(pids.numpy(), np.asarray(jpids))
-
-    total = keys.shape[0]
-    L = -(-total // T)
-    pad = T * L - total
-    keys = torch.cat([keys, torch.full((pad,), drop, dtype=torch.int32)])
-    pids = torch.cat([pids, torch.zeros(pad, dtype=torch.int32)])
+def jax_round_matches(curve, P, keys, pids, T, L, drop, blind):
+    """accumulate_plain's acc/meta/head/buckets on the stream (keys, pids)
+    cut into T lanes of L equal what one JAX round (_xla_round over
+    _item_step, K = L items per lane) leaves, scattered into the buckets."""
+    n = P[0].shape[0]
     tail = tc.coord_tail(curve)
     if blind:
         _, bl = pp.make_blind(curve, "cpu")
@@ -156,7 +138,6 @@ def test_stream_and_accumulation_match_jax_rounds(curve, blind):
     acc, meta, head, bkt, cnt = pp.accumulate_plain(
         curve, keys, pids, P, bl, T, L, drop)
 
-    # the same stream through one JAX round of K = L items per lane
     def major(a):  # (T, ...) -> limb-major (16, T) / (2, 16, T)
         return jnp.asarray(np.moveaxis(np.asarray(a), 0, -1))
 
@@ -200,6 +181,107 @@ def test_stream_and_accumulation_match_jax_rounds(curve, blind):
         assert np.array_equal(b.numpy().reshape(drop, cw),
                               jb[:, cw * i:cw * (i + 1)])
     assert np.array_equal(cnt.numpy(), jb[:, -1])
+
+
+def stream_case(curve):
+    rng = random.Random(13)
+    n = 12
+    pts = make_points(curve, rng, n)
+    pts[3] = HC.G1_ZERO if curve == "g1" else HC.G2_ZERO
+    scalars = [rng.randrange(R_MOD) for _ in range(n)]
+    scalars[2] = scalars[5]
+    scalars[7] = 0
+    scalars[8] = 1
+    return to_tensors(curve, pts, scalars)
+
+
+@pytest.mark.parametrize("curve,blind", [("g1", True), ("g2", False)])
+def test_stream_and_accumulation_match_jax_rounds(curve, blind):
+    """stream_keys equals the JAX package's (each window's live items in
+    digit order, then its dead ones), and the accumulation over that full
+    stream equals one JAX round on it."""
+    P, S = stream_case(curve)
+    keys, pids, drop = pp.stream_keys(P, S, C)
+    jP = tuple(jnp.asarray(t.numpy()) for t in P)
+    _, jkeys, jpids, jdrop = jpp.stream_keys(
+        curve, (jP[0].astype(jnp.uint32), jP[1].astype(jnp.uint32), jP[2]),
+        jnp.asarray(S.numpy().astype(np.uint32)), C)
+    assert int(jdrop) == drop
+    assert np.array_equal(keys.numpy(), np.asarray(jkeys).astype(np.int64))
+    assert np.array_equal(pids.numpy(), np.asarray(jpids))
+    T = 8
+    L = -(-keys.shape[0] // T)
+    keys, pids = pp.pad_stream(keys, pids, drop, T, L)
+    jax_round_matches(curve, P, keys, pids, T, L, drop, blind)
+
+
+@pytest.mark.parametrize("lanes,min_items", [(3, 1), (512, 1), (64, 4)],
+                         ids=["lanes3", "lanes-over-live", "min-items4"])
+@pytest.mark.parametrize("curve,blind", [("g1", True), ("g2", False)])
+def test_live_stream_accumulation_matches_jax_rounds(curve, blind, lanes,
+                                                     min_items):
+    """The live stream is the JAX stream's live items in the same order
+    (keys < DROP, finite points), and the accumulation over it, cut and
+    padded as msm cuts it, equals one JAX round on the same stream."""
+    P, S = stream_case(curve)
+    keys, pids, drop = pp.live_stream(P, S, C)
+    fk, fp, _ = pp.stream_keys(P, S, C)
+    keep = (fk < drop) & ~P[2][fp.long()]
+    assert torch.equal(keys, fk[keep]) and torch.equal(pids, fp[keep])
+    assert int((keys >= drop).sum()) == 0
+    T, L = pp.lane_cut(keys.shape[0], lanes, min_items)
+    assert T <= lanes and L == -(-keys.shape[0] // T)
+    keys, pids = pp.pad_stream(keys, pids, drop, T, L)
+    jax_round_matches(curve, P, keys, pids, T, L, drop, blind)
+
+
+def live_case(curve, case, rng):
+    """(points, scalars) whose live stream is mint-like (bit scalars), empty
+    (all scalars 0, or all points at infinity) or a single item."""
+    n = 10
+    zero = HC.G1_ZERO if curve == "g1" else HC.G2_ZERO
+    pts = make_points(curve, rng, n)
+    if case == "bits":
+        scalars = [rng.randrange(2) for _ in range(n)]
+        scalars[0] = scalars[4] = 1
+        pts[2] = zero
+    elif case == "zero-scalars":
+        scalars = [0] * n
+    elif case == "infinite-points":
+        pts = [zero] * n
+        scalars = [rng.randrange(R_MOD) for _ in range(n)]
+    else:                       # one live (window, point) pair
+        scalars = [0] * n
+        scalars[6] = 77
+    return pts, scalars
+
+
+@pytest.mark.parametrize("blind", [False, True], ids=["plain", "blinded"])
+@pytest.mark.parametrize("case", ["bits", "zero-scalars", "infinite-points",
+                                  "single"])
+@pytest.mark.parametrize("curve", ["g1", "g2"])
+def test_live_stream_msm(curve, case, blind):
+    """The MSM over the live stream equals the host oracle; with no live
+    item it is infinity with every window count 0. The lane cap (64) is
+    above the live count, so the cut is the live count's own."""
+    pts, scalars = live_case(curve, case, random.Random(hash(case) & 0xff))
+    P, S = to_tensors(curve, pts, scalars)
+    live = pp.live_stream(P, S, C)[0].shape[0]
+    assert (live == 0) == (case in ("zero-scalars", "infinite-points"))
+    assert (live == 1) == (case == "single")
+    assert run_msm(curve, pts, scalars, 64, blind) == \
+        host_msm(curve, pts, scalars)
+    if blind and live == 0:
+        _, bl = pp.make_blind(curve, "cpu")
+        assert int(pp.msm(curve, P, S, C, 64, blind=bl)[3].abs().sum()) == 0
+
+
+def test_lane_cut():
+    """T = min(lanes, ceil(live / min_items)), L = ceil(live / T)."""
+    assert pp.lane_cut(1, 64, 8) == (1, 1)
+    assert pp.lane_cut(86000, 32768, 8) == (10750, 8)
+    assert pp.lane_cut(4270000, 32768, 8) == (32768, 131)
+    assert pp.lane_cut(5, 64, 1) == (5, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -306,8 +388,9 @@ def reduce_small(curve, pts, scalars, lanes, blind, threads, chunk):
     chunk sizes; returns (host point, blinded wts or None, counts)."""
     P, S = to_tensors(curve, pts, scalars)
     W, nb = pp.n_windows(C), 1 << C
-    keys, pids, drop = pp.stream_keys(P, S, C)
-    keys, pids, T, L = pp.pad_stream(keys, pids, drop, lanes)
+    keys, pids, drop = pp.live_stream(P, S, C)
+    T, L = pp.lane_cut(keys.shape[0], lanes, 2)
+    keys, pids = pp.pad_stream(keys, pids, drop, T, L)
     R, bl = pp.make_blind(curve, "cpu") if blind else (None, None)
     acc, meta, head, bkt, cnt = pp.accumulate_plain(curve, keys, pids, P, bl,
                                                     T, L, drop)
@@ -325,8 +408,9 @@ def reduce_small(curve, pts, scalars, lanes, blind, threads, chunk):
 @pytest.mark.parametrize("blind", [False, True], ids=["plain", "blinded"])
 @pytest.mark.parametrize("curve", ["g1", "g2"])
 def test_msm_reduction_small_blocks(curve, blind):
-    """Bits as scalars (as the mint witness's SHA-256 wires are): window 0's
-    bucket 1 is one run over many lanes and, at 4 partials a block, many
+    """Bits as scalars (as the mint witness's SHA-256 wires are), on the
+    live stream at 2 items a lane: window 0's bucket 1 is one run over
+    many lanes and, at 4 partials a block, many
     combine blocks; equal points put equal sums in one bucket. The MSM
     equals the host oracle after unblinding, and wts equals the JAX
     package's integer mirror of the same bucket counts."""

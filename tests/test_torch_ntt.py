@@ -1,9 +1,11 @@
 """blockmaze_tpu_torch NTT against the JAX package: the plain versions of
 the butterfly and pointwise-product kernels against the Pallas kernels
-(interpret mode on the CPU), and the table-driven FFT pipeline against
-jntt on basic (m = 16, 128) and step (m = 24, 48: big_m = 2 * small_m, the
-mint shape) domains, each package on its own domain object. Exact
-equality."""
+(interpret mode on the CPU), the fft kernel's plain version and its
+concatenated twiddle tables against jntt.fft_with and jntt's per-stage
+tables, the fft kernel's pass decomposition emulated on the CPU, and the
+table-driven FFT pipeline against jntt on basic (m = 16, 128) and step
+(m = 24, 48: big_m = 2 * small_m, the mint shape) domains, each package on
+its own domain object. Exact equality."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -114,3 +116,97 @@ def test_fft_is_evaluation_on_step_domain():
         return acc
 
     assert out == [ev(d.get_domain_element(i)) for i in range(d.m)]
+
+
+def _fft_cases(min_size):
+    """(name, jntt perm, jntt per-stage tables, port perm, port
+    concatenated twiddles) of every FFT the domain's QAP runs."""
+    d = D.get_evaluation_domain(min_size)
+    td = TD.get_evaluation_domain(min_size)
+    JT = jntt.qap_tables(d)
+    TT = tntt.tables_to(tntt.qap_tables(td), "cpu")
+    pre = [""] if isinstance(d, D.BasicDomain) else ["big_", "small_"]
+    return [(p + di, JT[p + "perm"], JT[p + di], TT[p + "perm"], TT[p + di])
+            for p in pre for di in ("fwd", "inv")]
+
+
+@pytest.mark.parametrize("min_size", [128, 48, 24],
+                         ids=["basic128", "step48", "step24"])
+def test_fft_plain_and_tables_match_jntt(min_size):
+    """The card path's fft (plain version: gather, then stage s over rows
+    2^s - 1 .. 2^(s+1) - 2 of the concatenated table) equals jntt.fft_with
+    on the same input, and the concatenated table is jntt's per-stage
+    tables end to end; forward and inverse, big and small FFT of a step
+    domain."""
+    rng = np.random.default_rng(min_size + 1)
+    for name, jperm, jstages, perm, tw in _fft_cases(min_size):
+        m = perm.shape[0]
+        assert perm.dtype == torch.int32 and tw.shape == (m - 1, 16)
+        for s, jtw in enumerate(jstages):
+            assert np.array_equal(_np(tw[(1 << s) - 1:(2 << s) - 1]),
+                                  _np(jtw)), (name, s)
+        a = _rand_fr(rng, m)
+        got = tntt.fft_with(tf.to_tensor(a, "cpu"), perm, tw)
+        want = jntt.fft_with(jnp.asarray(a), m, jnp.asarray(jperm),
+                             tuple(jnp.asarray(t) for t in jstages))
+        assert got.dtype == torch.int32
+        assert np.array_equal(_np(got), _np(want)), name
+
+
+def test_fft_passes():
+    """Passes of at most FFT_TILE_LOG stages cover every stage once: two up
+    to 2^20 (mint's 2^17 and 2^16, send's 2^18, deposit's 2^19)."""
+    assert pntt.fft_passes(17) == [(0, 9), (9, 17)]
+    assert pntt.fft_passes(16) == [(0, 8), (8, 16)]
+    assert pntt.fft_passes(19) == [(0, 10), (10, 19)]
+    assert pntt.fft_passes(0) == [(0, 0)]
+    assert pntt.fft_passes(7) == [(0, 7)]
+    for k in range(0, 31):
+        ps = pntt.fft_passes(k)
+        assert ps[0][0] == 0 and ps[-1][1] == k
+        assert all(a[1] == b[0] for a, b in zip(ps, ps[1:]))
+        assert all(0 <= s1 - s0 <= pntt.FFT_TILE_LOG for s0, s1 in ps)
+        assert len(ps) == max(1, -(-k // pntt.FFT_TILE_LOG))
+
+
+def _tiled_fft(a, perm, tw, tile_log):
+    """csrc/pntt.cu's fft passes on the CPU: a pass over stages [s0, s1)
+    takes column col (low = col mod 2^s0, high = col >> s0) at positions
+    low + (r << s0) + (high << s1), r < 2^(s1 - s0), and its stage s0 + l
+    butterfly at row r_lo uses twiddle row 2^(s0+l) - 1 + low + ((r_lo mod
+    2^l) << s0); the first pass gathers through perm."""
+    m = a.shape[0]
+    k = m.bit_length() - 1
+    cur = a.to(torch.int64)
+    for s0, s1 in pntt.fft_passes(k, tile_log):
+        R = 1 << (s1 - s0)
+        cols = torch.arange(m // R)
+        low, high = cols & ((1 << s0) - 1), cols >> s0
+        pos = low[None] + (torch.arange(R)[:, None] << s0) + (high[None] << s1)
+        v = cur[perm.long()[pos]] if s0 == 0 else cur[pos]
+        for l in range(s1 - s0):
+            half = 1 << l
+            pr = torch.arange(R // 2)
+            rlo = ((pr >> l) << (l + 1)) | (pr & (half - 1))
+            j = low[None] + ((rlo & (half - 1))[:, None] << s0)
+            w = tw.to(torch.int64)[(1 << (s0 + l)) - 1 + j]
+            x, y = v[rlo], v[rlo + half]
+            t = tf.mont_mul(tf.FR, w, y)
+            v[rlo], v[rlo + half] = tf.add(tf.FR, x, t), tf.sub(tf.FR, x, t)
+        cur = torch.empty_like(cur)
+        cur[pos] = v
+    return cur.to(torch.int32)
+
+
+@pytest.mark.parametrize("tile_log", [2, 3, 10])
+def test_fft_pass_decomposition_matches_plain(tile_log):
+    """The kernel's position and twiddle arithmetic, emulated at tile
+    depths that give four, three and one passes over basic128's forward
+    FFT (2^7) and three, two and one over step48's big inverse one (2^5),
+    equals the plain loop."""
+    rng = np.random.default_rng(tile_log)
+    for min_size, which in ((128, 0), (48, 1)):
+        _, _, _, perm, tw = _fft_cases(min_size)[which]
+        a = tf.to_tensor(_rand_fr(rng, perm.shape[0]), "cpu")
+        assert torch.equal(_tiled_fft(a, perm, tw, tile_log),
+                           pntt.fft_plain(a, perm, tw))
