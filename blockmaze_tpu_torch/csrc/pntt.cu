@@ -5,7 +5,9 @@
 // Replaces: blockmaze_tpu/ntt/pntt.py `butterfly` (one DIT stage,
 // (lo + w*hi, lo - w*hi), launched once per stage by jntt.fft_with after an
 // XLA gather for the bit reversal) and `mul_elementwise` (pointwise
-// product: COO matvec terms, A*B, coset / 1/Z / 1/m scaling).
+// product: COO matvec terms, A*B, coset / 1/Z / 1/m scaling). On the prove
+// path mul_elementwise is left with one role, the witness's Montgomery
+// form (x * R^2); its others moved into fft's factors and csrc/qap.cu.
 //
 // What bounds them on this card: one Fr CIOS product per butterfly or
 // element. A whole FFT of 2^k elements is k * 2^(k-1) products (2^17: 17.6
@@ -28,6 +30,14 @@
 // twiddle of stage s, lo position p, is w[2^s - 1 + p mod 2^s] in the
 // concatenated table. Field arithmetic is exact and canonical, so the
 // result equals the stage-by-stage loop bit for bit whatever the split.
+//
+// The pointwise products around a basic-domain FFT ride in its first and
+// last pass instead of launches of their own: the first pass multiplies
+// each element it gathers by `pre` at the element's source index (the
+// coset powers of a coset FFT), the last multiplies each element it stores
+// by the single row `scale` (1/m of an inverse FFT) and then by `post` at
+// its output index (coset^-1 of an inverse coset FFT). Each is an optional
+// (null) pointer; the product order is the JAX pipeline's.
 //
 // `butterfly_stage` stays as the one-to-one counterpart of the TPU kernel;
 // the prove path launches `fft`.
@@ -57,10 +67,13 @@ __device__ __forceinline__ void tile_put(int4* sm, int tile, int e,
 // FIRST: `in` is (2^k, 16) in the JAX layout, gathered through perm; else
 // `in` is the packed (2^k, 8) scratch. LAST: `out` is (2^k, 16) in the JAX
 // layout; else the packed scratch (in place when in == out).
+// pre (FIRST), scale and post (LAST): optional factors, see above.
 template <bool FIRST, bool LAST>
 __global__ void __launch_bounds__(1 << (FFT_TILE_LOG - 1))
     fft_pass_kernel(int32_t* out, const int32_t* in, const int32_t* perm,
-                    const int32_t* tw, int tile_log, int s0, int s1) {
+                    const int32_t* tw, int tile_log, int s0, int s1,
+                    const int32_t* pre, const int32_t* scale,
+                    const int32_t* post) {
   extern __shared__ int4 sm[];
   const int ns = s1 - s0;
   const int tile = 1 << tile_log;
@@ -81,7 +94,11 @@ __global__ void __launch_bounds__(1 << (FFT_TILE_LOG - 1))
     const long long p = pos(r, cl);
     E v;
     if (FIRST) {
-      v = load_e4(reinterpret_cast<const int4*>(in) + 4LL * perm[p], 1);
+      const long long src = perm[p];
+      v = load_e4(reinterpret_cast<const int4*>(in) + 4 * src, 1);
+      if (pre)
+        v = mul_e<FrP>(v, load_e4(reinterpret_cast<const int4*>(pre) + 4 * src,
+                                  1));
     } else {
       const int4* q = reinterpret_cast<const int4*>(in) + 2 * p;
       v = e_from_int4(q[0], q[1]);
@@ -124,6 +141,11 @@ __global__ void __launch_bounds__(1 << (FFT_TILE_LOG - 1))
     const long long p = pos(r, cl);
     E v = tile_get(sm, tile, e);
     if (LAST) {
+      if (scale) v = mul_e<FrP>(v, load_e4(reinterpret_cast<const int4*>(scale),
+                                           1));
+      if (post)
+        v = mul_e<FrP>(v, load_e4(reinterpret_cast<const int4*>(post) + 4 * p,
+                                  1));
       store_e4(reinterpret_cast<int4*>(out) + 4 * p, v);
     } else {
       int4* q = reinterpret_cast<int4*>(out) + 2 * p;
@@ -173,10 +195,13 @@ unsigned blocks_for(long long n) {
 // of 2^tile_log elements, s1 - s0 <= tile_log <= min(k, 10). a: (m, 16)
 // (first pass) or packed (m, 8) scratch; out: (m, 16) (last pass) or the
 // scratch, all 16-byte aligned; perm: (m,) int32; tw: (m - 1, 16), stage s
-// at row 2^s - 1.
+// at row 2^s - 1. pre (read by the first pass), scale (1, 16) and post
+// (read by the last) are (m, 16) or null.
 extern "C" int bm_fft_pass(void* out, const void* a, const void* perm,
                            const void* tw, int k, int tile_log, int s0,
-                           int s1, int first, int last, void* stream) {
+                           int s1, int first, int last, const void* pre,
+                           const void* scale, const void* post,
+                           void* stream) {
   if (k < 0 || k > 30 || tile_log > k || tile_log > FFT_TILE_LOG || s0 < 0 ||
       s1 < s0 || s1 > k || s1 - s0 > tile_log)
     return (int)cudaErrorInvalidValue;
@@ -189,18 +214,21 @@ extern "C" int bm_fft_pass(void* out, const void* a, const void* perm,
   auto i = (const int32_t*)a;
   auto p = (const int32_t*)perm;
   auto w = (const int32_t*)tw;
+  auto f0 = (const int32_t*)pre;
+  auto f1 = (const int32_t*)scale;
+  auto f2 = (const int32_t*)post;
   if (first && last)
-    fft_pass_kernel<true, true><<<grid, threads, smem, s>>>(o, i, p, w,
-                                                            tile_log, s0, s1);
+    fft_pass_kernel<true, true><<<grid, threads, smem, s>>>(
+        o, i, p, w, tile_log, s0, s1, f0, f1, f2);
   else if (first)
-    fft_pass_kernel<true, false><<<grid, threads, smem, s>>>(o, i, p, w,
-                                                             tile_log, s0, s1);
+    fft_pass_kernel<true, false><<<grid, threads, smem, s>>>(
+        o, i, p, w, tile_log, s0, s1, f0, f1, f2);
   else if (last)
-    fft_pass_kernel<false, true><<<grid, threads, smem, s>>>(o, i, p, w,
-                                                             tile_log, s0, s1);
+    fft_pass_kernel<false, true><<<grid, threads, smem, s>>>(
+        o, i, p, w, tile_log, s0, s1, f0, f1, f2);
   else
-    fft_pass_kernel<false, false><<<grid, threads, smem, s>>>(o, i, p, w,
-                                                              tile_log, s0, s1);
+    fft_pass_kernel<false, false><<<grid, threads, smem, s>>>(
+        o, i, p, w, tile_log, s0, s1, f0, f1, f2);
   return (int)cudaGetLastError();
 }
 

@@ -213,22 +213,19 @@ def select(mask, a, b):
     return torch.where(mask[..., None], a, b)
 
 
-def canon_wide(spec: FieldSpec, wide, mul=None):
+def canon_wide(spec: FieldSpec, wide):
     """Canonical residue of an int64 limb tensor holding sums of canonical
     16-bit limbs (e.g. an index_add_ over Montgomery residues), each limb
     < 2^48. Split each limb into three 16-bit parts and fold each through a
     Montgomery product with a canonical constant:
-        part_k · (2^{16k}·R mod p) · R^-1 = part_k · 2^{16k} mod p.
-    `mul` is the Montgomery product to use (the Fr kernel wrapper on the
-    QAP path); it defaults to the plain mont_mul."""
-    mul = mul or (lambda x, y: mont_mul(spec, x, y))
+        part_k · (2^{16k}·R mod p) · R^-1 = part_k · 2^{16k} mod p."""
     wide = _i64(wide)
     acc = None
     for k in range(3):
         part = (wide >> (W * k)) & MASK
         cst = const(C.to_limbs((1 << (W * k)) * spec.r_mod % spec.modulus),
                     wide)
-        term = _i64(mul(part, cst))
+        term = mont_mul(spec, part, cst)
         acc = term if acc is None else add(spec, acc, term)
     return acc
 

@@ -5,7 +5,9 @@ Port of blockmaze_tpu/groth16/keys.py. The npz format is the JAX
 package's (CACHE_VERSION 1), so a key written by either package loads in
 the other. Arrays are numpy on the host (uint32 16-bit limbs, Montgomery
 form); to_device carries any object with DevicePK's fields - this
-package's or the JAX package's - onto a device as int32 tensors.
+package's or the JAX package's - onto a device as int32 tensors, with the
+three COO constraint matrices turned into the one CSR matrix the QAP's
+matvec kernel takes (build_csr).
 """
 
 from __future__ import annotations
@@ -149,17 +151,71 @@ def load_device_pk(path: str) -> DevicePK:
     return DevicePK(**kw)
 
 
+# Rows of more terms than this are summed by a warp in the matvec kernel
+# (csrc/qap.cu), the others by a thread.
+LONG_ROW = 32
+
+
+@dataclasses.dataclass
+class MatrixCSR:
+    """A, B and C stacked as one compressed-row matrix of 3m rows (m the
+    domain size): row r of A, B, C is row r, m + r, 2m + r. A also holds
+    the input-consistency rows ncons + i = wire i (i <= num_inputs), each
+    one term with coefficient Montgomery one (x * (R mod r) * R^-1 = x).
+    Rows past a matrix's constraints have no terms. ptr (3m + 1,) int32
+    row offsets into var (nnz,) int32 and coeff (nnz, 16) Montgomery
+    limbs; long_rows (int32) lists the rows of more than LONG_ROW terms.
+    numpy arrays from build_csr, int32 tensors in a DeviceKey."""
+    ptr: object
+    var: object
+    coeff: object
+    long_rows: object
+
+
+def build_csr(dpk) -> MatrixCSR:
+    """The CSR of a DevicePK's (this package's or the JAX package's) COO
+    matrices: a stable sort of each by row, so each row keeps its terms'
+    order."""
+    m, ncons = dpk.domain_size, dpk.num_constraints
+    n_inp = dpk.primary_input_size
+    rows, vars_, coeffs = [], [], []
+    for k, name in enumerate("abc"):
+        r = np.asarray(getattr(dpk, f"{name}_row"), np.int64)
+        v = np.asarray(getattr(dpk, f"{name}_var"), np.int64)
+        c = np.asarray(getattr(dpk, f"{name}_coeff"), np.uint32)
+        if name == "a":
+            extra = np.arange(n_inp + 1)
+            r = np.concatenate([r, ncons + extra])
+            v = np.concatenate([v, extra])
+            c = np.concatenate([c, np.broadcast_to(tf.FR.one_mont,
+                                                   (n_inp + 1, tf.N))])
+        order = np.argsort(r, kind="stable")
+        rows.append(r[order] + k * m)
+        vars_.append(v[order])
+        coeffs.append(c[order])
+    row = np.concatenate(rows)
+    counts = np.bincount(row, minlength=3 * m)
+    ptr = np.zeros(3 * m + 1, np.int64)
+    np.cumsum(counts, out=ptr[1:])
+    return MatrixCSR(ptr=ptr.astype(np.int32),
+                     var=np.concatenate(vars_).astype(np.int32),
+                     coeff=np.concatenate(coeffs),
+                     long_rows=np.flatnonzero(counts > LONG_ROW)
+                     .astype(np.int32))
+
+
 @dataclasses.dataclass
 class DeviceKey:
     """A DevicePK's arrays as torch tensors on one device: point queries as
-    (x int32, y int32, inf bool), COO rows/vars int64, coefficients int32."""
+    (x int32, y int32, inf bool), B_idx int64, and the constraint matrices
+    as one MatrixCSR of int32 tensors."""
     A: tuple
     B_idx: torch.Tensor
     B2: tuple
     B1: tuple
     H: tuple
     L: tuple
-    coos: tuple
+    csr: MatrixCSR
 
 
 def to_device(dpk, device) -> DeviceKey:
@@ -169,12 +225,9 @@ def to_device(dpk, device) -> DeviceKey:
         return (tf.to_tensor(x, device), tf.to_tensor(y, device),
                 torch.from_numpy(np.asarray(inf, bool)).to(device))
 
-    def idx(a):
-        return torch.from_numpy(np.asarray(a, np.int64)).to(device)
-
-    coos = tuple(
-        (idx(getattr(dpk, f"{k}_row")), idx(getattr(dpk, f"{k}_var")),
-         tf.to_tensor(getattr(dpk, f"{k}_coeff"), device))
-        for k in "abc")
-    return DeviceKey(A=pts(dpk.A), B_idx=idx(dpk.B_idx), B2=pts(dpk.B2),
-                     B1=pts(dpk.B1), H=pts(dpk.H), L=pts(dpk.L), coos=coos)
+    csr = build_csr(dpk)
+    csr = MatrixCSR(*(tf.to_tensor(getattr(csr, f.name), device)
+                      for f in dataclasses.fields(csr)))
+    B_idx = torch.from_numpy(np.asarray(dpk.B_idx, np.int64)).to(device)
+    return DeviceKey(A=pts(dpk.A), B_idx=B_idx, B2=pts(dpk.B2),
+                     B1=pts(dpk.B1), H=pts(dpk.H), L=pts(dpk.L), csr=csr)

@@ -2,7 +2,9 @@
 device, unblinding and the final combine on the host.
 
 Port of blockmaze_tpu/groth16/prover.py (`Prover.__init__` and `prove`;
-r1cs_gg_ppzksnark.tcc:391-506):
+r1cs_gg_ppzksnark.tcc:391-506). The witness goes to the device in
+standard form (the MSM scalars) and takes its Montgomery form there (one
+mul_elementwise by R^2); the QAP returns H in standard form:
 
   H       = qap_witness_map(cs, primary, aux)                 [NTT pipeline]
   At      = <A_query, (1, wires)>                             [MSM G1]
@@ -23,7 +25,6 @@ import secrets
 import time
 from typing import List, Optional
 
-import numpy as np
 import torch
 
 from ..curves import host_curve as HC
@@ -90,12 +91,13 @@ class Prover:
         self.nL = _next_pow2(len(dpk.L[2]))
         self.L = _pad_points(dk.L, self.nL)
         self.B_idx = dk.B_idx
-        self.coos = dk.coos
-        self.tables = tntt.tables_to(tntt.qap_tables(self.domain),
+        self.csr = dk.csr
+        self.tables = tntt.tables_to({**tntt.qap_tables(self.domain),
+                                      **tntt.std_tables(self.domain)},
                                      self.device)
-        one = np.zeros((1, tf.N), np.uint32)
-        one[0, 0] = 1
-        self._one = tf.to_tensor(one, self.device)
+        # x * R^2 * R^-1 = x*R mod r for any x < 2^256 (R^2 mod r is
+        # canonical, the operand the product needs)
+        self._r2 = tf.to_tensor(FR.r2_limbs[None], self.device)
         self.timings = {}
         self.msm_inputs = {}
 
@@ -133,17 +135,14 @@ class Prover:
         t0 = time.perf_counter()
 
         wires = [1] + list(primary) + list(aux)
-        wires_mont = tf.to_tensor(tf.to_mont_host(FR, wires), self.device)
         wires_std = tf.to_tensor(tf.ints_to_limbs(wires), self.device)
+        wires_mont = pntt.mul_elementwise(wires_std, self._r2)
         R1, b1 = pp.make_blind("g1", self.device)
         R2, b2 = pp.make_blind("g2", self.device)
         t0 = self._lap("wires", t0)
 
-        H_mont = qap.qap_h_arrays(
-            self.domain, (dpk.num_constraints, dpk.primary_input_size),
-            self.coos, wires_mont, self.tables)
-        H_std = pntt.mul_elementwise(
-            H_mont[:self.domain.m - 1].contiguous(), self._one)
+        H_std = qap.qap_h_arrays(self.domain, self.csr, wires_mont,
+                                 self.tables, std=True)[:self.domain.m - 1]
         t0 = self._lap("qap", t0)
 
         At = self._msm("A", "g1", self.A, wires_std, self.nA, b1)

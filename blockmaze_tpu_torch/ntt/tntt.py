@@ -4,10 +4,14 @@ Port of blockmaze_tpu/ntt/jntt.py's table-driven pipeline: host tables
 (twiddles per stage, bit reversal, coset powers, 1/Z on the coset) built
 once per domain, and the fft/ifft/coset/divide-by-Z operations over
 (m, 16) Montgomery limb tensors. Every power-of-two FFT runs through
-pntt.fft (bit-reversal gather and all stages) and every Montgomery product
-through pntt.mul_elementwise (the CUDA kernels on the card, their plain
-versions on the CPU); the step domain's adds and subs stay plain torch, as
-they were XLA in the JAX package.
+pntt.fft (bit-reversal gather and all stages); the pointwise work around
+the FFTs is fused into kernels too (the CUDA kernels on the card, their
+plain versions on the CPU): on a basic domain the coset, 1/m and coset^-1
+products ride in fft's first and last pass, and the step domain's
+elementwise stages are one pntt.step_pre before its two forward FFTs and
+one pntt.step_post after its two inverse ones. Same functions and
+outputs as jntt's; only divide_by_z_t is a mul_elementwise (the QAP fuses
+it into pntt.qap_combine).
 """
 
 from __future__ import annotations
@@ -62,6 +66,17 @@ def _fft_tables(m: int, omega: int):
 @lru_cache(maxsize=None)
 def _coset_table(m: int, g: int):
     return tf.to_mont_host(FR, _powers(g, m))
+
+
+@lru_cache(maxsize=None)
+def std_tables(domain) -> dict:
+    """Tables in standard form (not Montgomery): "coset_inv_std", the
+    coset^-1 powers that icoset_fft_t(std=True) takes. A Montgomery product
+    by a factor in standard form, x*R * c * R^-1 = x*c, gives the
+    standard-form product, so the inverse coset FFT's last step also leaves
+    the Montgomery form. Move with tables_to."""
+    g_inv = pow(MULT_GEN, -1, R_MOD)
+    return {"coset_inv_std": tf.ints_to_limbs(_powers(g_inv, domain.m))}
 
 
 def batch_modinv(vals: list) -> list:
@@ -161,14 +176,6 @@ def tables_to(T: dict, device) -> dict:
 # Pipeline (jntt.py:120-152, :256-329)
 # ---------------------------------------------------------------------------
 
-def _add(a, b):
-    return tf.add(FR, a, b).to(torch.int32)
-
-
-def _sub(a, b):
-    return tf.sub(FR, a, b).to(torch.int32)
-
-
 def fft_with(a, perm, tw):
     """In-order Cooley-Tukey DIT FFT (_basic_serial_radix2_FFT) with the
     concatenated twiddles of tables_to: one pntt.fft."""
@@ -183,54 +190,47 @@ def fft_t(domain, a, T):
 
 def ifft_t(domain, a, T):
     if isinstance(domain, BasicDomain):
-        out = fft_with(a, T["perm"], T["inv"])
-        return pntt.mul_elementwise(out, T["minv"])
+        return pntt.fft(a.contiguous(), T["perm"], T["inv"], scale=T["minv"])
     return _step_ifft_t(domain, a, T)
 
 
 def coset_fft_t(domain, a, T):
-    return fft_t(domain, pntt.mul_elementwise(a, T["coset"]), T)
+    if isinstance(domain, BasicDomain):
+        return pntt.fft(a.contiguous(), T["perm"], T["fwd"], pre=T["coset"])
+    return _step_fft_t(domain, a, T, T["coset"])
 
 
-def icoset_fft_t(domain, a, T):
-    return pntt.mul_elementwise(ifft_t(domain, a, T), T["coset_inv"])
+def icoset_fft_t(domain, a, T, std: bool = False):
+    """Inverse coset FFT; std=True returns the standard form (T must then
+    hold std_tables' "coset_inv_std")."""
+    post = T["coset_inv_std" if std else "coset_inv"]
+    if isinstance(domain, BasicDomain):
+        return pntt.fft(a.contiguous(), T["perm"], T["inv"], scale=T["minv"],
+                        post=post)
+    return _step_ifft_t(domain, a, T, post)
 
 
 def divide_by_z_t(a, T):
     return pntt.mul_elementwise(a, T["zinv"])
 
 
-def _step_fft_t(d: StepDomain, a, T):
-    big_m, small_m = d.big_m, d.small_m
-    compr = big_m // small_m
-    a_lo, a_hi = a[:big_m], a[big_m:]
-    pad_hi = torch.cat([a_hi, torch.zeros((big_m - small_m, tf.N),
-                                          dtype=a.dtype, device=a.device)])
-    c = _add(a_lo, pad_hi)
-    dvec = pntt.mul_elementwise(T["omega_pows"], _sub(a_lo, pad_hi))
-    e = dvec.reshape(compr, small_m, tf.N)
-    acc = e[0]
-    for j in range(1, compr):
-        acc = _add(acc, e[j])
-    c = fft_with(c, T["big_perm"], T["big_fwd"])
-    eo = fft_with(acc, T["small_perm"], T["small_fwd"])
-    return torch.cat([c, eo])
+def _step_fft_t(d: StepDomain, a, T, coset=None):
+    """One step_pre (times coset, if given), then the big and the small FFT
+    into the two row ranges of one output."""
+    big_m = d.big_m
+    x = pntt.step_pre(a.contiguous(), T["omega_pows"], d.small_m, coset)
+    out = torch.empty_like(x)
+    pntt.fft(x[:big_m], T["big_perm"], T["big_fwd"], out=out[:big_m])
+    pntt.fft(x[big_m:], T["small_perm"], T["small_fwd"], out=out[big_m:])
+    return out
 
 
-def _step_ifft_t(d: StepDomain, a, T):
-    big_m, small_m = d.big_m, d.small_m
-    compr = big_m // small_m
+def _step_ifft_t(d: StepDomain, a, T, post=None):
+    """The big and the small inverse FFT, then one step_post (times post,
+    if given)."""
+    big_m = d.big_m
+    a = a.contiguous()
     U0 = fft_with(a[:big_m], T["big_perm"], T["big_inv"])
     U1 = fft_with(a[big_m:], T["small_perm"], T["small_inv"])
-    U0 = pntt.mul_elementwise(U0, T["big_minv"])
-    U1 = pntt.mul_elementwise(U1, T["small_minv"])
-    tmp = pntt.mul_elementwise(U0, T["omega_pows"])
-    tmp_r = tmp.reshape(compr, small_m, tf.N)
-    sub_acc = tmp_r[1]
-    for j in range(2, compr):
-        sub_acc = _add(sub_acc, tmp_r[j])
-    U1 = _sub(U1, sub_acc)
-    U1 = pntt.mul_elementwise(U1, T["omega_inv_pows"])
-    a_prefix = pntt.mul_elementwise(_add(U0[:small_m], U1), T["half"])
-    b2 = pntt.mul_elementwise(_sub(U0[:small_m], U1), T["half"])
-    return torch.cat([a_prefix, U0[small_m:], b2])
+    return pntt.step_post(U0, U1, T["omega_pows"], T["omega_inv_pows"],
+                          T["big_minv"], T["small_minv"], T["half"], post)

@@ -43,9 +43,13 @@ CURVE_ID = {"g1": 1, "g2": 2}
 
 # C entry points and their argument types (csrc/*.cu).
 SIGNATURES = {
-    "bm_fft_pass": [_P] * 4 + [_I] * 6 + [_P],
+    "bm_fft_pass": [_P] * 4 + [_I] * 6 + [_P] * 4,
     "bm_butterfly_stage": [_P, _P, _P, _LL, _LL, _P],
     "bm_mul_elementwise": [_P, _P, _P, _LL, _I, _P],
+    "bm_qap_matvec": [_P] * 6 + [_I] * 3 + [_P],
+    "bm_step_pre": [_P] * 4 + [_I] * 2 + [_P],
+    "bm_step_post": [_P] * 9 + [_I] * 2 + [_P],
+    "bm_qap_combine": [_P] * 5 + [_LL, _P],
     "bm_point_add": [_I] + [_P] * 9 + [_LL, _P],
     "bm_point_double": [_I] + [_P] * 6 + [_LL, _P],
     "bm_point_mixed_add": [_I, _I] + [_P] * 9 + [_LL, _P],
@@ -189,6 +193,14 @@ def check_cuda(name: str, *tensors, counts=()):
                              f", got {t.dtype}")
 
 
+def check_aligned(name: str, *tensors):
+    """Raise unless every tensor starts on a 16-byte boundary (kernels that
+    read 16-byte chunks; a sliced view may not)."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: tensors must be 16-byte aligned (the "
+                         f"kernel reads 16-byte chunks)")
+
+
 def on_cpu(*tensors) -> bool:
     """True if every tensor lies on the CPU (the plain version's domain);
     False if every one is on CUDA; raises on anything else."""
@@ -211,6 +223,19 @@ K = {
     "mul_elementwise": Kernel("mul_elementwise", "bm_mul_elementwise",
                               "blockmaze_tpu_torch/csrc/pntt.cu",
                               "blockmaze_tpu/ntt/pntt.py:61"),
+    # K2's QAP roles, with the field ops around them, redesigned
+    "qap_matvec": Kernel("qap_matvec", "bm_qap_matvec",
+                         "blockmaze_tpu_torch/csrc/qap.cu",
+                         "blockmaze_tpu/ntt/pntt.py:61"),
+    "step_pre": Kernel("step_pre", "bm_step_pre",
+                       "blockmaze_tpu_torch/csrc/qap.cu",
+                       "blockmaze_tpu/ntt/pntt.py:61"),
+    "step_post": Kernel("step_post", "bm_step_post",
+                        "blockmaze_tpu_torch/csrc/qap.cu",
+                        "blockmaze_tpu/ntt/pntt.py:61"),
+    "qap_combine": Kernel("qap_combine", "bm_qap_combine",
+                          "blockmaze_tpu_torch/csrc/qap.cu",
+                          "blockmaze_tpu/ntt/pntt.py:61"),
     "add": Kernel("add", "bm_point_add",
                   "blockmaze_tpu_torch/csrc/pcurve.cu",
                   "blockmaze_tpu/curves/pcurve.py:129"),

@@ -7,7 +7,12 @@ Phases, each timed; any failure raises and the script exits nonzero:
   1. every kernel against its plain torch version on the same CUDA tensors,
      bit-exact, with kernel and plain times and each kernel's bound, at the
      shapes the main path gives it: fft at mint's 2^17 and 2^16 and send's
-     2^18, forward and inverse tables; the point kernels at keygen's chunk
+     2^18, forward and inverse tables, and at send's 2^18 with its
+     pointwise factors (coset before a forward FFT; 1/m and coset^-1 after
+     an inverse one); step_pre and step_post at mint's step domain
+     (2^17 + 2^16), with and without their coset factors; qap_combine at
+     196,608 rows; mul_elementwise at 2^16 (and in phase 3 at the mint
+     witness); the point kernels at keygen's chunk
      (2^18 G1, 2^17 G2 lanes); the MSM kernels (msm_round, msm_combine,
      msm_triangle, msm_fold) at the mint MSMs' shape (2^18 G1 and 2^17 G2
      points, c = 12, 22 windows) on real blinded data cut as msm cuts its
@@ -17,16 +22,25 @@ Phases, each timed; any failure raises and the script exits nonzero:
      = (sum_i i*k_i mod r) * G for 2^18 G1 points and 2^14 G2 points;
   3. the mint circuit end to end: constraints and witness, keygen (seeded
      toxic waste), Prover on cuda:0, three proofs, each verified by the host
-     verifier, and two proofs with equal (r, s) equal; then msm_round on the
-     proof's own five live streams (timed, and bit-exact against its plain
-     version on the sparse A and the dense H stream), the MSMs' time over a
-     sweep of lane counts, and a profiled proof.
+     verifier, and two proofs with equal (r, s) equal; then
+     mul_elementwise on the mint witness by the R^2 row (its one launch on
+     the main path; timed beside the host to_mont_host it replaced) and
+     qap_matvec on the mint key's own CSR and witness (bit-exact, timed,
+     with each matrix's terms and longest row), one more QAP witness map under
+     torch.cuda.set_sync_debug_mode("error") (it must not wait for the
+     device), msm_round on the proof's own five live streams (timed, and
+     bit-exact against its plain version on the sparse A and the dense H
+     stream), the MSMs' time over a sweep of lane counts, and a profiled
+     proof.
 The launch counts are reset just before keygen and read just after it, and
 reset again just before the three proofs and read just after them: each
 path must launch each of its kernels, and the prove path must not launch
 the batched point kernels (add, double), which the bucket reduction
 replaced there, nor the single-stage butterfly, which fft replaced (at
-most 28 fft launches per proof: two passes for each of 14 FFTs). double
+most 28 fft launches per proof: two passes for each of 14 FFTs); it must
+launch mul_elementwise at most once per proof (the witness's Montgomery
+form) and qap_matvec, step_pre, step_post and qap_combine at most 12
+times in all per proof. double
 (K4) is on neither path any more; phase 1 holds it against its plain
 version. The second-to-last line is the kernel table as
 JSON; the last line is the result JSON. With no GPU it exits nonzero before
@@ -40,7 +54,9 @@ the reduction factors. 16.7 T/s = 132 SMs x 64 IMAD per clock x 1.98 GHz,
 half the float32 FMA rate behind the 67 TFLOP/s of the card's data sheet.
 Products are counted per point operation on the path each input takes
 (G1/G2 Fq products: add 16/43, double 7/16, mixed add 11/29; msm_round one
-mixed add per live item), and per butterfly for fft (k * 2^(k-1)).
+mixed add per live item), per butterfly for fft (k * 2^(k-1)) plus one
+per element and factor, per term for qap_matvec, and per element and
+step for step_pre, step_post and qap_combine.
 """
 
 from __future__ import annotations
@@ -63,13 +79,17 @@ IMAD_RATE = 132 * 64 * 1.98e9
 IMAD_PER_PRODUCT = 264
 PRODUCTS = {"g1": {"add": 16, "dbl": 7, "madd": 11},
             "g2": {"add": 43, "dbl": 16, "madd": 29}}
-ORDER = ["fft", "butterfly", "mul_elementwise", "add", "double", "msm_round",
+ORDER = ["fft", "butterfly", "mul_elementwise", "qap_matvec", "step_pre",
+         "step_post", "qap_combine", "add", "double", "msm_round",
          "msm_combine", "msm_triangle", "msm_fold", "mixed_add",
          "mixed_add_noexc"]
 KEYGEN_PATH = ["add", "mixed_add", "mixed_add_noexc"]
-PROVE_PATH = ["fft", "mul_elementwise", "msm_round", "msm_combine",
-              "msm_triangle", "msm_fold"]
+QAP_KERNELS = ["qap_matvec", "step_pre", "step_post", "qap_combine"]
+PROVE_PATH = ["fft", "mul_elementwise", *QAP_KERNELS, "msm_round",
+              "msm_combine", "msm_triangle", "msm_fold"]
 FFTS_PER_PROOF = 14    # mint: 7 step-domain FFTs of a 2^17 and a 2^16 part
+QAP_LAUNCHES_PER_PROOF = 12   # QAP_KERNELS together, at most
+ROW = 64               # bytes of one Fr element (16 int32 limbs)
 
 
 def log(*a):
@@ -117,8 +137,9 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True)
-    log(smi.stdout.strip().splitlines()[0] if smi.returncode == 0
-        and smi.stdout.strip() else "nvidia-smi: unavailable")
+    card = (smi.stdout.strip().splitlines()[0] if smi.returncode == 0
+            and smi.stdout.strip() else "nvidia-smi: unavailable")
+    log(card)
     log("torch", torch.__version__, "cuda", torch.version.cuda, "device",
         torch.cuda.get_device_name(0))
     rng = np.random.default_rng(SEED)
@@ -153,6 +174,7 @@ def main():
         report[name]["launches"] = (keygen_counts or {}).get(name, 0) \
             + prove_counts.get(name, 0)
     log(f"total: {time.perf_counter() - t_all:.1f}s")
+    log(card)      # again, next to the results (the build's log is long)
     log(json.dumps({"kernels": [report[k] for k in ORDER]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -265,7 +287,8 @@ def phase1(dev, rng, report):
     w = rand_field(rng, (4,), dev)
     pntt.mul_elementwise_plain(w, w)
     tf.sub(tf.FQ, w, w)
-    fft_parity(dev, rng, check, record)
+    mint_d, mint = fft_parity(dev, rng, check, record)
+    step_parity(mint_d, mint, dev, rng, check, record)
     # K2: pointwise Fr product, 2^16 elements; K1: one stage of 2^16
     # butterflies (span 2^15, the second-to-last stage of a 2^17 FFT)
     a = rand_field(rng, (1 << 16,), dev)
@@ -336,30 +359,79 @@ def phase1(dev, rng, report):
 def fft_parity(dev, rng, check, record):
     """fft against its plain version (gather, then one butterfly_plain per
     stage) with the tables the prover moves to the card: mint's step domain
-    (its 2^17 and 2^16 parts) and send's basic 2^18, forward and inverse."""
+    (its 2^17 and 2^16 parts) and send's basic 2^18, forward and inverse;
+    then at send's 2^18 with the factors a basic domain's coset FFT (coset
+    before) and inverse coset FFT (1/m and coset^-1 after) fuse into it.
+    Returns mint's domain and tables."""
     from blockmaze_tpu_torch.ntt import domain as TD
     from blockmaze_tpu_torch.ntt import pntt, tntt
-    from blockmaze_tpu_torch.fields.constants import R_MOD
-    mint = tntt.tables_to(tntt.qap_tables(
-        TD.get_evaluation_domain((1 << 17) + (1 << 16))), dev)
-    send = TD.get_evaluation_domain(1 << 18)
-    cases = [(f"{p}{d} 2^{k}", mint[p + "perm"], mint[p + d])
+    mint_d = TD.get_evaluation_domain((1 << 17) + (1 << 16))
+    mint = tntt.tables_to({**tntt.qap_tables(mint_d),
+                           **tntt.std_tables(mint_d)}, dev)
+    send = tntt.tables_to(tntt.qap_tables(TD.get_evaluation_domain(1 << 18)),
+                          dev)
+    cases = [(f"{p}{d} 2^{k}", mint[p + "perm"], mint[p + d], {})
              for p, k in (("big_", 17), ("small_", 16))
              for d in ("fwd", "inv")]
-    for d, omega in (("fwd", send.omega), ("inv", pow(send.omega, -1,
-                                                       R_MOD))):
-        perm, stages = tntt._fft_tables(send.m, omega)
-        t = tntt.tables_to({"perm": perm, "tw": tuple(stages)}, dev)
-        cases.append((f"basic {d} 2^18", t["perm"], t["tw"]))
-    for name, perm, tw in cases:
+    cases += [("basic fwd 2^18", send["perm"], send["fwd"], {}),
+              ("basic inv 2^18", send["perm"], send["inv"], {}),
+              ("basic fwd 2^18 pre=coset", send["perm"], send["fwd"],
+               {"pre": send["coset"]}),
+              ("basic inv 2^18 scale=1/m post=coset^-1", send["perm"],
+               send["inv"], {"scale": send["minv"],
+                             "post": send["coset_inv"]})]
+    for name, perm, tw, factors in cases:
         m = perm.shape[0]
         k = m.bit_length() - 1
         a = rand_field(rng, (m,), dev)
+        products = k * m // 2 + m * len(factors)
         record("fft", check(
             "fft", f"Fr {name} ({len(pntt.fft_passes(k))} passes)",
-            lambda: pntt.fft(a, perm, tw),
-            lambda: pntt.fft_plain(a, perm, tw), reps=20),
-            k * m // 2, 2 * nbytes(a) + nbytes(perm, tw))
+            lambda: pntt.fft(a, perm, tw, **factors),
+            lambda: pntt.fft_plain(a, perm, tw, **factors), reps=20),
+            products,
+            2 * nbytes(a) + nbytes(perm, tw, *factors.values()))
+    return mint_d, mint
+
+
+def step_parity(d, T, dev, rng, check, record):
+    """step_pre, step_post and qap_combine against their plain versions at
+    mint's step domain (m = 2^17 + 2^16, compr = 2) with the prover's
+    tables: step_pre with the coset (coset FFT, the main path's) and
+    without (plain FFT); step_post without a factor (inverse FFT), with
+    coset^-1 and with coset^-1 in standard form (the prover's last step);
+    qap_combine over m rows with 1/Z."""
+    from blockmaze_tpu_torch.ntt import pntt
+    m, big, small = d.m, d.big_m, d.small_m
+    a = rand_field(rng, (m,), dev)
+    for coset in (T["coset"], None):
+        record("step_pre", check(
+            "step_pre", f"mint m={m} compr={big // small} "
+            f"coset={coset is not None}",
+            lambda: pntt.step_pre(a, T["omega_pows"], small, coset),
+            lambda: pntt.step_pre_plain(a, T["omega_pows"], small, coset),
+            reps=20),
+            big + (m if coset is not None else 0),
+            (2 * m + big + (m if coset is not None else 0)) * ROW)
+    u0 = rand_field(rng, (big,), dev)
+    u1 = rand_field(rng, (small,), dev)
+    tabs = (T["omega_pows"], T["omega_inv_pows"], T["big_minv"],
+            T["small_minv"], T["half"])
+    for label, post in (("none", None), ("coset^-1", T["coset_inv"]),
+                        ("coset^-1 std", T["coset_inv_std"])):
+        record("step_post", check(
+            "step_post", f"mint m={m} compr={big // small} post={label}",
+            lambda: pntt.step_post(u0, u1, *tabs, post),
+            lambda: pntt.step_post_plain(u0, u1, *tabs, post), reps=20),
+            2 * big + 3 * small + (m if post is not None else 0),
+            (big + small + (big - small) + small + 3 + m
+             + (m if post is not None else 0)) * ROW)
+    x, y, z = (rand_field(rng, (m,), dev) for _ in range(3))
+    record("qap_combine", check(
+        "qap_combine", f"mint m={m}",
+        lambda: pntt.qap_combine(x, y, z, T["zinv"]),
+        lambda: pntt.qap_combine_plain(x, y, z, T["zinv"]), reps=20),
+        2 * m, 5 * m * ROW)
 
 
 def accumulate_bytes(curve, keys, pids, live, pts, T, drop):
@@ -631,6 +703,15 @@ def phase3(dev, report):
     if prove_counts["fft"] > 3 * 2 * FFTS_PER_PROOF:
         raise RuntimeError(f"prove path: {prove_counts['fft'] / 3} fft "
                            f"launches per proof, more than two per FFT")
+    if prove_counts["mul_elementwise"] > 3:
+        raise RuntimeError(f"prove path: {prove_counts['mul_elementwise'] / 3}"
+                           f" mul_elementwise launches per proof, more than "
+                           f"the witness's one")
+    qap_launches = sum(prove_counts[k] for k in QAP_KERNELS)
+    if qap_launches > 3 * QAP_LAUNCHES_PER_PROOF:
+        raise RuntimeError(f"prove path: {qap_launches / 3} launches of "
+                           f"{QAP_KERNELS} per proof, more than "
+                           f"{QAP_LAUNCHES_PER_PROOF}")
     log("  double (K4) runs on neither path; phase 1 holds it against its "
         "plain version")
     for i, proof in enumerate(proofs):
@@ -643,11 +724,78 @@ def phase3(dev, report):
             (proofs[1].a, proofs[1].b, proofs[1].c):
         raise AssertionError("two proofs with equal (r, s) differ")
     log("  proofs 0 and 1 (equal r, s; fresh blinds) equal: True")
+    qap_parity(prover, primary, aux, report)
     digit_stats(prover)
     mint_stream_parity(prover, report)
     lane_sweep(prover)
     profile_prove(prover, primary, aux)
     return keygen_counts, prove_counts
+
+
+def qap_parity(prover, primary, aux, report):
+    """The witness's Montgomery form on the card (mul_elementwise by R^2,
+    the kernel table's row for K2, the main path's one launch of it)
+    against its plain version, timed beside the host conversion it
+    replaced; qap_matvec against its plain version on the mint key's own
+    CSR and witness (the stacked A, B and C: each matrix's terms, longest
+    row, rows summed by a warp and empty rows printed), timed with its
+    bound; then
+    the QAP witness map of the last proof once more under
+    torch.cuda.set_sync_debug_mode("error"), which raises if anything in
+    it waits for the device, and equal to a run without it."""
+    from blockmaze_tpu_torch.fields import tfield as tf
+    from blockmaze_tpu_torch.groth16 import keys, qap
+    from blockmaze_tpu_torch.ntt import pntt
+    dev = prover.device
+    m, csr = prover.domain.m, prover.csr
+    wires = [1] + list(primary) + list(aux)
+    t0 = time.perf_counter()
+    tf.to_mont_host(tf.FR, wires)
+    t_host = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    std = tf.to_tensor(tf.ints_to_limbs(wires), dev)
+    torch.cuda.synchronize()
+    t_up = time.perf_counter() - t0
+    r2 = tf.to_tensor(tf.FR.r2_limbs[None], dev)
+    record_kernel(report, "mul_elementwise", check_kernel(
+        "mul_elementwise", f"mint witness ({len(wires)}, 16) x R^2 row",
+        lambda: pntt.mul_elementwise(std, r2),
+        lambda: pntt.mul_elementwise_plain(std, r2), reps=20),
+        len(wires), 2 * nbytes(std) + nbytes(r2), primary=True)
+    log(f"  witness of {len(wires)} wires on this host: to_mont_host (the "
+        f"host conversion the prover no longer runs) {t_host * 1e3:.1f} ms; "
+        f"ints_to_limbs + upload (still run) {t_up * 1e3:.1f} ms")
+    w = pntt.mul_elementwise(std, r2)
+    counts = (csr.ptr[1:] - csr.ptr[:-1]).reshape(3, m)
+    for name, c in zip("ABC", counts):
+        log(f"  mint {name}: {int(c.sum())} terms, longest row "
+            f"{int(c.max())}, {int((c > keys.LONG_ROW).sum())} rows over "
+            f"{keys.LONG_ROW} terms, {int((c == 0).sum())} empty rows of {m}")
+    nnz = csr.var.shape[0]
+    used = int(torch.unique(csr.var).numel())
+    record_kernel(report, "qap_matvec", check_kernel(
+        "qap_matvec", f"mint CSR rows={3 * m} terms={nnz} "
+        f"warp rows={csr.long_rows.shape[0]}",
+        lambda: qap.qap_matvec(csr, w),
+        lambda: qap.qap_matvec_plain(csr, w), reps=10),
+        nnz, nnz * (4 + ROW) + nbytes(csr.ptr, csr.long_rows)
+        + used * ROW + 3 * m * ROW)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        H = qap.qap_h_arrays(prover.domain, csr, w, prover.tables, std=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    t_enqueue = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t_all = time.perf_counter() - t0
+    again = qap.qap_h_arrays(prover.domain, csr, w, prover.tables, std=True)
+    if not torch.equal(H, again):
+        raise AssertionError("qap_h_arrays differs between two runs")
+    log(f"  qap_h_arrays under set_sync_debug_mode('error'): no sync; "
+        f"enqueued in {t_enqueue * 1e3:.2f} ms, done in {t_all * 1e3:.2f} ms"
+        f"; equal to a second run: True")
 
 
 def digit_stats(prover):
@@ -786,7 +934,9 @@ def profile_prove(prover, primary, aux):
     log("  the port's kernels in that proof (device ms, launches):")
     for tag in ("accumulate_kernel<bm::Fq,", "accumulate_kernel<bm::Fq2,",
                 "fft_pass_kernel", "butterfly_stage_kernel",
-                "mul_elementwise_kernel", "combine_kernel<bm::Fq>",
+                "mul_elementwise_kernel", "qap_matvec_kernel",
+                "step_pre_kernel", "step_post_kernel", "qap_combine_kernel",
+                "combine_kernel<bm::Fq>",
                 "combine_kernel<bm::Fq2>", "triangle_kernel<bm::Fq>",
                 "triangle_kernel<bm::Fq2>", "fold_kernel<bm::Fq>",
                 "fold_kernel<bm::Fq2>", "aten::sort", "RadixSort",

@@ -79,12 +79,11 @@ def test_jax_npz_loads_identically(jax_reference, npz_key, tmp_path):
         assert np.array_equal(getattr(npz_key, f), getattr(dpk, f)), f
     # the port takes the JAX DevicePK object as is, to the same tensors
     a, b = keys.to_device(dpk, "cpu"), keys.to_device(npz_key, "cpu")
-    for f in ("A", "B2", "B1", "H", "L", "coos"):
-        flat_a = [t for part in getattr(a, f) for t in
-                  (part if isinstance(part, tuple) else (part,))]
-        flat_b = [t for part in getattr(b, f) for t in
-                  (part if isinstance(part, tuple) else (part,))]
-        assert all(torch.equal(x, y) for x, y in zip(flat_a, flat_b)), f
+    for f in ("A", "B2", "B1", "H", "L"):
+        assert all(torch.equal(x, y)
+                   for x, y in zip(getattr(a, f), getattr(b, f))), f
+    for f in ("ptr", "var", "coeff", "long_rows"):
+        assert torch.equal(getattr(a.csr, f), getattr(b.csr, f)), f
     # and the port's own npz loads back into the JAX package
     path = str(tmp_path / "toy_port.v1.npz")
     keys.save_device_pk(npz_key, path)
