@@ -128,7 +128,9 @@ def save_device_pk(dpk, path: str):
     data["B_idx"] = dpk.B_idx
     for f in _COO_FIELDS:
         data[f] = getattr(dpk, f)
-    np.savez_compressed(path, **data)
+    # uncompressed: compressing the limb arrays was most of keygen's host
+    # time; np.load reads either kind, so both packages load the file
+    np.savez(path, **data)
 
 
 def load_device_pk(path: str) -> DevicePK:

@@ -9,10 +9,11 @@ Phases, each timed; any failure raises and the script exits nonzero:
      shapes the main path gives it: fft at mint's 2^17 and 2^16 and send's
      2^18, forward and inverse tables, and at send's 2^18 with its
      pointwise factors (coset before a forward FFT; 1/m and coset^-1 after
-     an inverse one); step_pre and step_post at mint's step domain
-     (2^17 + 2^16), with and without their coset factors; qap_combine at
-     196,608 rows; mul_elementwise at 2^16 (and in phase 3 at the mint
-     witness); the point kernels at keygen's chunk
+     an inverse one), and at deposit's 2^19 and deposit20's 2^20 forward,
+     with the coset, and inverse with its factors; step_pre and step_post
+     at mint's step domain (2^17 + 2^16), with and without their coset
+     factors; qap_combine at 196,608 rows; mul_elementwise at 2^16 (and in
+     phase 3 at the mint witness); the point kernels at keygen's chunk
      (2^18 G1, 2^17 G2 lanes); the MSM kernels (msm_round, msm_combine,
      msm_triangle, msm_fold) at the mint MSMs' shape (2^18 G1 and 2^17 G2
      points, c = 12, 22 windows) on real blinded data cut as msm cuts its
@@ -20,30 +21,42 @@ Phases, each timed; any failure raises and the script exits nonzero:
      msm_round on a full stream with dead items and infinity points;
   2. MSMs at the prover's sizes against closed forms: sum_i k_i * (i*G)
      = (sum_i i*k_i mod r) * G for 2^18 G1 points and 2^14 G2 points;
-  3. the mint circuit end to end: constraints and witness, keygen (seeded
-     toxic waste), Prover on cuda:0, three proofs, each verified by the host
-     verifier, and two proofs with equal (r, s) equal; then
-     mul_elementwise on the mint witness by the R^2 row (its one launch on
-     the main path; timed beside the host to_mont_host it replaced) and
-     qap_matvec on the mint key's own CSR and witness (bit-exact, timed,
-     with each matrix's terms and longest row), one more QAP witness map under
-     torch.cuda.set_sync_debug_mode("error") (it must not wait for the
-     device), msm_round on the proof's own five live streams (timed, and
-     bit-exact against its plain version on the sparse A and the dense H
-     stream), the MSMs' time over a sweep of lane counts, and a profiled
-     proof.
-The launch counts are reset just before keygen and read just after it, and
-reset again just before the three proofs and read just after them: each
-path must launch each of its kernels, and the prove path must not launch
-the batched point kernels (add, double), which the bucket reduction
-replaced there, nor the single-stage butterfly, which fft replaced (at
-most 28 fft launches per proof: two passes for each of 14 FFTs); it must
-launch mul_elementwise at most once per proof (the witness's Montgomery
-form) and qap_matvec, step_pre, step_post and qap_combine at most 12
-times in all per proof. double
-(K4) is on neither path any more; phase 1 holds it against its plain
-version. The second-to-last line is the kernel table as
-JSON; the last line is the result JSON. With no GPU it exits nonzero before
+  3. the mint circuit end to end (run_circuit: constraints and witness
+     from circuits/instances.py, keygen with seeded toxic waste, Prover on
+     cuda:0, three proofs, each verified by the port's verifier, the two
+     with equal (r, s) equal, each constraint matrix's terms, longest row
+     and warp rows, live items and lanes per MSM); then mul_elementwise
+     on the mint witness by the R^2 row (its one launch on the main path;
+     timed beside the host to_mont_host it replaced) and qap_matvec on the
+     mint key's own CSR and witness (bit-exact, timed), one more QAP
+     witness map under torch.cuda.set_sync_debug_mode("error") (it must
+     not wait for the device), msm_round on the proof's own five live
+     streams (timed, and bit-exact against its plain version on the sparse
+     A and the dense H stream), the MSMs' time over a sweep of lane
+     counts, and a profiled proof;
+  4. send (basic domain, 2^18), redeem (step, 2^17 + 2^16), deposit
+     (basic, 2^19) and deposit20 (deposit at Merkle depth 20: basic, 2^20,
+     window c = 13) end to end, each as mint in run_circuit; on each basic
+     domain the QAP witness map on the card against its plain path on the
+     card, on the circuit's own CSR and witness; on deposit20 the four MSM
+     kernels at c = 13, W = 20 against their plain versions on the proof's
+     own A and H streams.
+Each circuit's launch counts are reset just before its keygen and read
+just after it, and reset again just before its three proofs and read just
+after them: each path must launch each of its kernels. The prove path by
+domain kind (PROVE_PATH): never the batched point kernels (add, double,
+mixed adds), which the bucket reduction replaced there, nor the
+single-stage butterfly, which fft replaced; on a step domain at most 28
+fft launches per proof (two passes for each of 14 FFTs) and at most 12 of
+qap_matvec, step_pre, step_post and qap_combine; on a basic domain at most
+14 fft launches (7 FFTs of two passes, their factors inside), one
+qap_matvec, one qap_combine, no step_pre or step_post; on both at most one
+mul_elementwise (the witness's Montgomery form). double (K4) is on neither
+path; phase 1 holds it against its plain version. A kernel's launches in
+the kernel table are its sum over both paths of every circuit. Each
+circuit prints a summary line (sizes, MSM shapes, keygen, Prover and
+proof times). The second-to-last line is the kernel table as JSON; the
+last line is the result JSON. With no GPU it exits nonzero before
 printing either.
 
 Bounds: the least time the card could take for a kernel's work on the
@@ -73,7 +86,6 @@ import numpy as np
 import torch
 
 SEED = 20261016
-WINDOW = 12            # its Pippenger window at the mint's sizes
 MEM_RATE = 3.35e12     # bytes/s
 IMAD_RATE = 132 * 64 * 1.98e9
 IMAD_PER_PRODUCT = 264
@@ -85,10 +97,32 @@ ORDER = ["fft", "butterfly", "mul_elementwise", "qap_matvec", "step_pre",
          "mixed_add_noexc"]
 KEYGEN_PATH = ["add", "mixed_add", "mixed_add_noexc"]
 QAP_KERNELS = ["qap_matvec", "step_pre", "step_post", "qap_combine"]
-PROVE_PATH = ["fft", "mul_elementwise", *QAP_KERNELS, "msm_round",
-              "msm_combine", "msm_triangle", "msm_fold"]
-FFTS_PER_PROOF = 14    # mint: 7 step-domain FFTs of a 2^17 and a 2^16 part
-QAP_LAUNCHES_PER_PROOF = 12   # QAP_KERNELS together, at most
+MSM_KERNELS = ["msm_round", "msm_combine", "msm_triangle", "msm_fold"]
+# the batched point kernels (the bucket reduction replaced them on the prove
+# path) and the single-stage butterfly (fft replaced it)
+OFF_PROVE_PATH = ["add", "double", "mixed_add", "mixed_add_noexc",
+                  "butterfly"]
+# The prove path by domain kind: the kernels each proof launches, those it
+# must not launch, and the most launches per proof of each group of
+# kernels. A step domain's 7 FFTs each run a big and a small part (two
+# passes each); a basic domain's 7 FFTs two passes each, their pointwise
+# factors inside; the witness takes its Montgomery form in one
+# mul_elementwise.
+PROVE_PATH = {
+    "step": {"launch": ["fft", "mul_elementwise", *QAP_KERNELS,
+                        *MSM_KERNELS],
+             "never": OFF_PROVE_PATH,
+             "at_most": [(["fft"], 28), (["mul_elementwise"], 1),
+                         (QAP_KERNELS, 12)]},
+    "basic": {"launch": ["fft", "mul_elementwise", "qap_matvec",
+                         "qap_combine", *MSM_KERNELS],
+              "never": OFF_PROVE_PATH + ["step_pre", "step_post"],
+              "at_most": [(["fft"], 14), (["mul_elementwise"], 1),
+                          (["qap_matvec"], 1), (["qap_combine"], 1)]},
+}
+# phase 4's circuits, in order (mint is phase 3's); deposit20 is the
+# deposit at Merkle depth 20
+CIRCUITS = ["send", "redeem", "deposit", "deposit20"]
 ROW = 64               # bytes of one Fr element (16 int32 limbs)
 
 
@@ -168,11 +202,16 @@ def main():
 
     # ---- phase 3: mint end to end ----------------------------------------
     t0 = time.perf_counter()
-    keygen_counts, prove_counts = phase3(dev, report)
+    path_counts = phase3(dev, report)
     log(f"phase 3 mint: {time.perf_counter() - t0:.1f}s")
+
+    # ---- phase 4: send, redeem, deposit, deposit20 end to end ------------
+    for circuit in CIRCUITS:
+        t0 = time.perf_counter()
+        path_counts += phase4(circuit, dev, report)
+        log(f"phase 4 {circuit}: {time.perf_counter() - t0:.1f}s")
     for name in kn.K:
-        report[name]["launches"] = (keygen_counts or {}).get(name, 0) \
-            + prove_counts.get(name, 0)
+        report[name]["launches"] = sum(c.get(name, 0) for c in path_counts)
     log(f"total: {time.perf_counter() - t_all:.1f}s")
     log(card)      # again, next to the results (the build's log is long)
     log(json.dumps({"kernels": [report[k] for k in ORDER]}))
@@ -361,15 +400,21 @@ def fft_parity(dev, rng, check, record):
     stage) with the tables the prover moves to the card: mint's step domain
     (its 2^17 and 2^16 parts) and send's basic 2^18, forward and inverse;
     then at send's 2^18 with the factors a basic domain's coset FFT (coset
-    before) and inverse coset FFT (1/m and coset^-1 after) fuse into it.
+    before) and inverse coset FFT (1/m and coset^-1 after) fuse into it;
+    then at deposit's 2^19 and deposit20's 2^20 (a second pass of 9 and 10
+    stages at stride 2^10), forward, forward with the coset and inverse
+    with 1/m and coset^-1 in standard form (the prover's last FFT).
     Returns mint's domain and tables."""
     from blockmaze_tpu_torch.ntt import domain as TD
     from blockmaze_tpu_torch.ntt import pntt, tntt
     mint_d = TD.get_evaluation_domain((1 << 17) + (1 << 16))
     mint = tntt.tables_to({**tntt.qap_tables(mint_d),
                            **tntt.std_tables(mint_d)}, dev)
+    t0 = time.perf_counter()
     send = tntt.tables_to(tntt.qap_tables(TD.get_evaluation_domain(1 << 18)),
                           dev)
+    log(f"  host QAP tables 2^18 basic (built once per domain; the Prover "
+        f"takes them from this cache): {time.perf_counter() - t0:.1f}s")
     cases = [(f"{p}{d} 2^{k}", mint[p + "perm"], mint[p + d], {})
              for p, k in (("big_", 17), ("small_", 16))
              for d in ("fwd", "inv")]
@@ -380,6 +425,17 @@ def fft_parity(dev, rng, check, record):
               ("basic inv 2^18 scale=1/m post=coset^-1", send["perm"],
                send["inv"], {"scale": send["minv"],
                              "post": send["coset_inv"]})]
+    for k in (19, 20):
+        d = TD.get_evaluation_domain(1 << k)
+        t0 = time.perf_counter()
+        T = tntt.tables_to({**tntt.qap_tables(d), **tntt.std_tables(d)}, dev)
+        log(f"  host QAP tables 2^{k} basic: {time.perf_counter() - t0:.1f}s")
+        cases += [(f"basic fwd 2^{k}", T["perm"], T["fwd"], {}),
+                  (f"basic fwd 2^{k} pre=coset", T["perm"], T["fwd"],
+                   {"pre": T["coset"]}),
+                  (f"basic inv 2^{k} scale=1/m post=coset^-1 std", T["perm"],
+                   T["inv"], {"scale": T["minv"],
+                              "post": T["coset_inv_std"]})]
     for name, perm, tw, factors in cases:
         m = perm.shape[0]
         k = m.bit_length() - 1
@@ -445,36 +501,28 @@ def accumulate_bytes(curve, keys, pids, live, pts, T, drop):
 
 def msm_parity(curve, n, dev, rng, check, record):
     """msm_round, msm_combine, msm_triangle and msm_fold against their
-    plain versions on real data at c = 12, 22 windows: n points i*G, half
-    of them with scalar 0 or 1 (so window 0's bucket 1 is one run across
-    many lanes and several combine blocks), half random, accumulated
-    blinded (the exception-free mixed add needs real points and a blind),
-    on the live stream cut as msm cuts it. Then msm_round alone on the
-    JAX package's full stream (dead items, a tenth of the points at
-    infinity) of 2^14 points at 4,096 lanes, unblinded."""
+    plain versions on real data at the window the MSM takes for n points
+    (c = 12, 22 windows at the mint's sizes): n points i*G, half of them
+    with scalar 0 or 1 (so window 0's bucket 1 is one run across many
+    lanes and several combine blocks), half random, accumulated blinded
+    (the exception-free mixed add needs real points and a blind), on the
+    live stream cut as msm cuts it (stream_parity). Then msm_round alone
+    on the JAX package's full stream (dead items, a tenth of the points at
+    infinity) of 2^14 points at 4,096 lanes, unblinded, and msm_fold on
+    windows that take each branch of its add."""
     from blockmaze_tpu_torch.msm import pippenger as pp
-    pr = PRODUCTS[curve]
-    c, W, nb = WINDOW, pp.n_windows(WINDOW), 1 << WINDOW
+    c = pp.default_window(n)
     pts = curve_points(curve, n, dev)
     sc = torch.from_numpy(rng.integers(0, 1 << 16, (n, 16),
                                        dtype=np.int64)).to(dev)
     sc[:, 15] &= 0x2fff
     sc[: n // 2] = 0
     sc[: n // 2, 0] = torch.from_numpy(rng.integers(0, 2, n // 2)).to(dev)
-    keys, pids, drop = pp.live_stream(pts, sc, c)
-    live = keys.shape[0]
-    T, L = pp.lane_cut(live, pp.MAX_LANES)
-    keys, pids = pp.pad_stream(keys, pids, drop, T, L)
+    stream = pp.live_stream(pts, sc, c)
     _, blind = pp.make_blind(curve, dev)
-    pt_row = 3 * nbytes(pts[0][0])
-    record("msm_round", check(
-        "msm_round", f"{curve} n={n} c={c} live={live} T={T} L={L}",
-        lambda: flat_acc(pp.accumulate(curve, keys, pids, pts, blind, T, L,
-                                       drop)),
-        lambda: flat_acc(pp.accumulate_plain(curve, keys, pids, pts, blind,
-                                             T, L, drop)), reps=3),
-        live * pr["madd"],
-        accumulate_bytes(curve, keys, pids, live, pts, T, drop))
+    win = stream_parity(curve, pts, stream, blind, c, f"{curve} n={n}",
+                        check, record)
+    drop = stream[2]
     m = 1 << 14
     fpts = tuple(t[n - m:].clone() for t in pts)
     fpts[2][::10] = True
@@ -487,13 +535,48 @@ def msm_parity(curve, n, dev, rng, check, record):
                                          drop)),
           lambda: flat_acc(pp.accumulate_plain(curve, fk, fp, fpts, None,
                                                fT, fL, drop)), reps=3)
+    # the add's branches: windows (top first) inf, P, P, A, inf with c = 0
+    # take p = inf, P = Q (doubling), the general add and q = inf
+    P1 = tuple(t[1:2] for t in win)
+    A = tuple(t[2:3] for t in win)
+    inf = tuple(torch.zeros_like(t) for t in P1)
+    edge = tuple(torch.cat(parts) for parts in zip(inf, A, P1, P1, inf))
+    check("msm_fold", f"{curve} W=5 c=0 (inf/double/general branches)",
+          lambda: pp.fold(curve, 0, edge),
+          lambda: pp.fold_plain(curve, 0, edge), reps=1)
+
+
+def stream_parity(curve, pts, stream, blind, c, label, check, record):
+    """The MSM's four kernels, each against its plain version on the
+    previous one's output: msm_round on the live stream (keys, point ids,
+    DROP) cut into pippenger.MAX_LANES lanes at most, msm_combine on its
+    boundary partials, msm_triangle on the buckets, msm_fold on the
+    window sums, at window c; each timed with its bound. Returns the
+    window sums."""
+    from blockmaze_tpu_torch.msm import pippenger as pp
+    pr = PRODUCTS[curve]
+    W, nb = pp.n_windows(c), 1 << c
+    keys, pids, drop = stream
+    live = keys.shape[0]
+    T, L = pp.lane_cut(live, pp.MAX_LANES)
+    keys, pids = pp.pad_stream(keys, pids, drop, T, L)
+    dev = keys.device
+    pt_row = 3 * nbytes(pts[0][0])
+    record("msm_round", check(
+        "msm_round", f"{label} c={c} live={live} T={T} L={L}",
+        lambda: flat_acc(pp.accumulate(curve, keys, pids, pts, blind, T, L,
+                                       drop)),
+        lambda: flat_acc(pp.accumulate_plain(curve, keys, pids, pts, blind,
+                                             T, L, drop)), reps=3),
+        live * pr["madd"],
+        accumulate_bytes(curve, keys, pids, live, pts, T, drop))
     acc, meta, head, bkt0, cnt0 = pp.accumulate(curve, keys, pids, pts,
                                                 blind, T, L, drop)
     cnt0 = cnt0.to(torch.int64)
     bkeys, bpts, bcn = pp.boundary_partials(curve, acc, meta, head)
     runs = torch.unique_consecutive(bkeys[bkeys < drop], return_counts=True)[1]
     items = 2 * pp.combine_threads(curve)
-    log(f"  {curve} reduction input: n={n} T={T} L={L}, {bkeys.shape[0]} "
+    log(f"  {label} reduction input: T={T} L={L}, {bkeys.shape[0]} "
         f"partials, longest run {int(runs.max())} partials "
         f"({int(runs.max()) / items:.1f} combine blocks of {items})")
     bk = [tuple(b.clone() for b in bkt0) for _ in range(2)]
@@ -510,15 +593,15 @@ def msm_parity(curve, n, dev, rng, check, record):
 
     # the adds the data needs: one per finite partial past the first of
     # each run
-    live = bkeys < drop
+    live_p = bkeys < drop
     rid = torch.cumsum(torch.cat([torch.zeros(1, dtype=torch.int64,
                                               device=dev),
                                   (bkeys[1:] != bkeys[:-1]).long()]), 0)
     fin = torch.zeros(int(rid.max()) + 1, dtype=torch.int64, device=dev)
-    fin.index_add_(0, rid[live], finite(bpts[2])[live].long())
+    fin.index_add_(0, rid[live_p], finite(bpts[2])[live_p].long())
     merges = int((fin - 1).clamp(min=0).sum())
     record("msm_combine", check(
-        "msm_combine", f"{curve} 2T={bkeys.shape[0]} blocks of {items}",
+        "msm_combine", f"{label} c={c} 2T={bkeys.shape[0]} blocks of {items}",
         run_kernel, run_plain, reps=5),
         merges * pr["add"],
         nbytes(bkeys, bcn, *bpts) + int(runs.numel()) * (pt_row + 8))
@@ -527,7 +610,7 @@ def msm_parity(curve, n, dev, rng, check, record):
     nonempty = int(finite(bkt[2]).reshape(W, nb)[:, 1:].sum())
     chunk, threads, blocks = pp.triangle_sizes(nb)
     record("msm_triangle", check(
-        "msm_triangle", f"{curve} W={W} c={c} chunk={chunk} "
+        "msm_triangle", f"{label} W={W} c={c} chunk={chunk} "
         f"{threads}x{blocks}/window",
         lambda: pp.triangle(curve, bkt, W, nb),
         lambda: pp.triangle_plain(curve, bkt, W, nb, chunk), reps=5),
@@ -535,19 +618,11 @@ def msm_parity(curve, n, dev, rng, check, record):
 
     win = pp.triangle(curve, bkt, W, nb)
     record("msm_fold", check(
-        "msm_fold", f"{curve} W={W} c={c}",
+        "msm_fold", f"{label} W={W} c={c}",
         lambda: pp.fold(curve, c, win),
         lambda: pp.fold_plain(curve, c, win), reps=5),
         (W - 1) * (c * pr["dbl"] + pr["add"]), W * pt_row + pt_row)
-    # the add's branches: windows (top first) inf, P, P, A, inf with c = 0
-    # take p = inf, P = Q (doubling), the general add and q = inf
-    P1 = tuple(t[1:2] for t in win)
-    A = tuple(t[2:3] for t in win)
-    inf = tuple(torch.zeros_like(t) for t in P1)
-    edge = tuple(torch.cat(parts) for parts in zip(inf, A, P1, P1, inf))
-    check("msm_fold", f"{curve} W=5 c=0 (inf/double/general branches)",
-          lambda: pp.fold(curve, 0, edge),
-          lambda: pp.fold_plain(curve, 0, edge), reps=1)
+    return win
 
 
 def flat_acc(res):
@@ -618,24 +693,8 @@ def phase2(dev):
 
 
 # ---------------------------------------------------------------------------
-# Phase 3: mint end to end
+# Phases 3 and 4: each circuit end to end
 # ---------------------------------------------------------------------------
-
-def mint_protoboard():
-    """The mint circuit with its constraints and the witness of
-    scripts/witnesses.py (sk = 1, r_old = 123456, r = 123, values 6/13/7)."""
-    from blockmaze_tpu_torch.circuits.mint import MintGadget
-    from blockmaze_tpu_torch.crypto import notes as NT
-    from blockmaze_tpu_torch.r1cs.protoboard import Protoboard
-    sk, r_old, r = (NT.uint256_from_hex(h) for h in ("1", "123456", "123"))
-    note_old = NT.Note(6, NT.compute_prf(sk, r_old), r_old)
-    note = NT.Note(13, NT.compute_prf(sk, r), r)
-    pb = Protoboard()
-    g = MintGadget(pb)
-    g.generate_constraints()
-    g.generate_witness(note_old, note, note_old.cm(), note.cm(), 7, sk)
-    return pb
-
 
 def check_launches(path, counts, expected, forbidden=()):
     log(f"  {path} launches: {json.dumps(counts)}")
@@ -648,88 +707,203 @@ def check_launches(path, counts, expected, forbidden=()):
                            f"longer uses: {stray}")
 
 
-def phase3(dev, report):
+def check_prove_counts(kind, counts, proofs):
+    """The prove path's launches over `proofs` proofs against
+    PROVE_PATH[kind] (kind: the domain's, "step" or "basic")."""
+    want = PROVE_PATH[kind]
+    check_launches(f"{kind}-domain prove path ({proofs} proofs)", counts,
+                   want["launch"], want["never"])
+    log("  per proof: " + json.dumps(
+        {k: v / proofs for k, v in counts.items() if v}))
+    for group, most in want["at_most"]:
+        n = sum(counts[k] for k in group)
+        if n > most * proofs:
+            raise RuntimeError(f"{kind}-domain prove path: {n / proofs} "
+                               f"launches of {group} per proof, more than "
+                               f"{most}")
+
+
+def domain_kind(domain) -> str:
+    from blockmaze_tpu_torch.ntt.domain import BasicDomain
+    return "basic" if isinstance(domain, BasicDomain) else "step"
+
+
+def run_circuit(name, dev):
+    """Circuit `name` (circuits/instances.py) end to end on the card:
+    constraints and witness, keygen with seeded toxic waste (cached in
+    blockmaze_tpu_torch/_keys/<name>_s<SEED>; its launches when it runs),
+    Prover on cuda:0, three proofs ((r, s) = (1, 2) twice, then random)
+    with their phases, the prove path's launches against its domain kind's,
+    each proof verified, the two with equal (r, s) equal; then the key's
+    matrices and the last proof's MSM streams described. Prints a summary
+    line for PERF.md. Returns (prover, primary, aux, [keygen launches,
+    prove launches])."""
+    from blockmaze_tpu_torch.circuits import instances
     from blockmaze_tpu_torch.groth16 import generator, verifier
     from blockmaze_tpu_torch.groth16.prover import Prover
+    from blockmaze_tpu_torch.msm import pippenger as pp
     from blockmaze_tpu_torch.utils import kernels as kn
 
     t0 = time.perf_counter()
-    pb = mint_protoboard()
+    pb = instances.protoboard(name)
     if not pb.is_satisfied():
-        raise AssertionError("mint witness does not satisfy its constraints")
-    log(f"  mint circuit: {pb.num_variables} variables, "
-        f"{len(pb.constraints)} constraints "
-        f"({time.perf_counter() - t0:.1f}s)")
+        raise AssertionError(f"{name} witness does not satisfy its "
+                             f"constraints")
+    summary = {"circuit": name, "variables": pb.num_variables,
+               "constraints": len(pb.constraints),
+               "synthesis_s": round(time.perf_counter() - t0, 1)}
+    log(f"  {name} circuit: {pb.num_variables} variables, "
+        f"{len(pb.constraints)} constraints, satisfied "
+        f"({summary['synthesis_s']}s)")
     t0 = time.perf_counter()
     cache = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "blockmaze_tpu_torch", "_keys")
     kn.reset_counts()
-    dpk, vk, generated = generator.generate_cached(pb, "mint", SEED, cache,
+    dpk, vk, generated = generator.generate_cached(pb, name, SEED, cache,
                                                    dev)
     torch.cuda.synchronize()
-    keygen_counts = kn.counts() if generated else None
-    log(f"  keygen (seed {SEED}) + npz/vk cache write and load: "
-        f"{time.perf_counter() - t0:.1f}s"
-        if generated else
-        f"  keys loaded from {cache} ({time.perf_counter() - t0:.1f}s); "
-        f"keygen path not run")
+    path_counts = []
+    summary["keygen_s" if generated else "key_load_s"] = round(
+        time.perf_counter() - t0, 1)
     if generated:
-        check_launches("keygen path", keygen_counts, KEYGEN_PATH)
+        path_counts.append(kn.counts())
+        log(f"  keygen (seed {SEED}) + npz/vk cache write and load: "
+            f"{summary['keygen_s']}s")
+        check_launches("keygen path", path_counts[-1], KEYGEN_PATH)
+    else:
+        log(f"  keys loaded from {cache} ({summary['key_load_s']}s); "
+            f"keygen path not run")
+    primary, aux = pb.primary_input(), pb.auxiliary_input()
+    del pb
     t0 = time.perf_counter()
     prover = Prover(dpk, dev)
     torch.cuda.synchronize()
-    log(f"  Prover(cuda:0): {time.perf_counter() - t0:.1f}s "
-        f"(domain m={prover.domain.m}, nA={prover.nA}, nB={prover.nB}, "
+    kind = domain_kind(prover.domain)
+    summary.update(prover_init_s=round(time.perf_counter() - t0, 1),
+                   m=prover.domain.m, domain=kind, nA=prover.nA,
+                   nB=prover.nB, nH=prover.nH, nL=prover.nL,
+                   c=prover.window, W=pp.n_windows(prover.window),
+                   lanes=prover.lanes)
+    log(f"  Prover(cuda:0): {summary['prover_init_s']}s (domain m="
+        f"{prover.domain.m} {kind}, nA={prover.nA}, nB={prover.nB}, "
         f"nH={prover.nH}, nL={prover.nL}, c={prover.window}, "
-        f"lanes={prover.lanes})")
-    primary, aux = pb.primary_input(), pb.auxiliary_input()
-    proofs = []
+        f"W={summary['W']}, lanes={prover.lanes})")
+    proofs, times = [], []
     kn.reset_counts()
     for i, (r, s) in enumerate(((1, 2), (1, 2), (None, None))):
         t0 = time.perf_counter()
         proof = prover.prove(primary, aux, r=r, s=s)
         dt = time.perf_counter() - t0
         phases = {k: round(v, 4) for k, v in prover.timings.items()}
+        times.append({"s": round(dt, 4), **phases})
         log(f"  prove {i} ({'first' if i == 0 else 'steady'}): {dt:.3f}s "
             f"phases {json.dumps(phases)}")
         proofs.append(proof)
     torch.cuda.synchronize()
-    prove_counts = kn.counts()
-    check_launches("prove path (3 proofs)", prove_counts, PROVE_PATH,
-                   forbidden=("add", "double", "mixed_add",
-                              "mixed_add_noexc", "butterfly"))
-    log("  per proof: " + json.dumps(
-        {k: v / 3 for k, v in prove_counts.items() if v}))
-    if prove_counts["fft"] > 3 * 2 * FFTS_PER_PROOF:
-        raise RuntimeError(f"prove path: {prove_counts['fft'] / 3} fft "
-                           f"launches per proof, more than two per FFT")
-    if prove_counts["mul_elementwise"] > 3:
-        raise RuntimeError(f"prove path: {prove_counts['mul_elementwise'] / 3}"
-                           f" mul_elementwise launches per proof, more than "
-                           f"the witness's one")
-    qap_launches = sum(prove_counts[k] for k in QAP_KERNELS)
-    if qap_launches > 3 * QAP_LAUNCHES_PER_PROOF:
-        raise RuntimeError(f"prove path: {qap_launches / 3} launches of "
-                           f"{QAP_KERNELS} per proof, more than "
-                           f"{QAP_LAUNCHES_PER_PROOF}")
-    log("  double (K4) runs on neither path; phase 1 holds it against its "
-        "plain version")
+    path_counts.append(kn.counts())
+    check_prove_counts(kind, path_counts[-1], len(proofs))
+    summary["proofs"] = times
     for i, proof in enumerate(proofs):
         t0 = time.perf_counter()
         ok = verifier.verify(vk, primary, proof)
         log(f"  verify proof {i}: {ok} ({time.perf_counter() - t0:.1f}s)")
         if not ok:
-            raise AssertionError(f"mint proof {i} rejected by the verifier")
+            raise AssertionError(f"{name} proof {i} rejected by the verifier")
     if (proofs[0].a, proofs[0].b, proofs[0].c) != \
             (proofs[1].a, proofs[1].b, proofs[1].c):
-        raise AssertionError("two proofs with equal (r, s) differ")
+        raise AssertionError(f"{name}: two proofs with equal (r, s) differ")
     log("  proofs 0 and 1 (equal r, s; fresh blinds) equal: True")
+    matrix_stats(name, prover)
+    summary["live"] = digit_stats(prover)
+    log(f"  circuit summary: {json.dumps(summary)}")
+    return prover, primary, aux, path_counts
+
+
+def phase3(dev, report):
+    """Mint end to end (run_circuit), then mint's own checks: K2 on the
+    witness and qap_matvec on the key's CSR (qap_parity), msm_round on the
+    proof's streams, the lane sweep and a profiled proof. Returns the
+    paths' launch counts."""
+    prover, primary, aux, path_counts = run_circuit("mint", dev)
+    log("  double (K4) runs on neither path; phase 1 holds it against its "
+        "plain version")
     qap_parity(prover, primary, aux, report)
-    digit_stats(prover)
     mint_stream_parity(prover, report)
     lane_sweep(prover)
     profile_prove(prover, primary, aux)
-    return keygen_counts, prove_counts
+    return path_counts
+
+
+def phase4(name, dev, report):
+    """Circuit `name` end to end (run_circuit); on a basic domain the whole
+    QAP witness map on the card against its plain path on the card
+    (qap_h_parity); on deposit20, the one circuit whose MSMs take c = 13,
+    the MSM's four kernels against their plain versions on the proof's own
+    A and H streams (stream_parity). Returns the paths' launch counts."""
+    from blockmaze_tpu_torch.msm import pippenger as pp
+    prover, primary, aux, path_counts = run_circuit(name, dev)
+    if domain_kind(prover.domain) == "basic":
+        qap_h_parity(name, prover, primary, aux, report)
+    if name == "deposit20":
+        for stream in ("A", "H"):
+            pts, sc = prover.msm_inputs[stream]
+            _, blind = pp.make_blind("g1", dev)
+            stream_parity("g1", pts, pp.live_stream(pts, sc, prover.window),
+                          blind, prover.window, f"{name} {stream}",
+                          check_kernel, functools.partial(record_kernel,
+                                                          report))
+    return path_counts
+
+
+def matrix_stats(name, prover):
+    """Each constraint matrix of the key's CSR (after keygen's A/B swap; A
+    with its input-consistency rows): terms, longest row, rows a warp sums
+    (more than keys.LONG_ROW terms) and empty rows."""
+    from blockmaze_tpu_torch.groth16 import keys
+    m, csr = prover.domain.m, prover.csr
+    counts = (csr.ptr[1:] - csr.ptr[:-1]).reshape(3, m)
+    for mat, c in zip("ABC", counts):
+        log(f"  {name} {mat}: {int(c.sum())} terms, longest row "
+            f"{int(c.max())}, {int((c > keys.LONG_ROW).sum())} rows over "
+            f"{keys.LONG_ROW} terms, {int((c == 0).sum())} empty rows of {m}")
+
+
+def qap_h_plain(domain, csr, w, T, std):
+    """qap.qap_h_arrays on a basic domain as its kernels' plain versions:
+    the matvec, three iFFTs (1/m) and coset FFTs, (A*B - C)/Z, and the
+    inverse coset FFT (1/m, coset^-1)."""
+    from blockmaze_tpu_torch.fields import tfield as tf
+    from blockmaze_tpu_torch.groth16 import qap
+    from blockmaze_tpu_torch.ntt import pntt
+    aA, aB, aC = (pntt.fft_plain(
+        pntt.fft_plain(x, T["perm"], T["inv"], scale=T["minv"]),
+        T["perm"], T["fwd"], pre=T["coset"])
+        for x in qap.qap_matvec_plain(csr, w).reshape(3, domain.m, tf.N))
+    H = pntt.qap_combine_plain(aA, aB, aC, T["zinv"])
+    return pntt.fft_plain(H, T["perm"], T["inv"], scale=T["minv"],
+                          post=T["coset_inv_std" if std else "coset_inv"])
+
+
+def qap_h_parity(name, prover, primary, aux, report):
+    """The QAP witness map of a basic-domain circuit (qap.qap_h_arrays, as
+    the prover runs it: H in standard form) on the card against its plain
+    path on the card, on the circuit's own CSR and witness, bit-exact."""
+    from blockmaze_tpu_torch.fields import tfield as tf
+    from blockmaze_tpu_torch.groth16 import qap
+    from blockmaze_tpu_torch.ntt import pntt
+    dev = prover.device
+    std = tf.to_tensor(tf.ints_to_limbs([1] + list(primary) + list(aux)),
+                       dev)
+    w = pntt.mul_elementwise(std, prover._r2)
+    res = check_kernel(
+        "qap_h_arrays", f"{name} m={prover.domain.m} basic, own CSR+witness",
+        lambda: qap.qap_h_arrays(prover.domain, prover.csr, w,
+                                 prover.tables, std=True),
+        lambda: qap_h_plain(prover.domain, prover.csr, w, prover.tables,
+                            True), reps=5)
+    for k in ("fft", "qap_matvec", "qap_combine"):
+        report[k]["max_abs_err"] = max(report[k].get("max_abs_err", 0),
+                                       res[0])
 
 
 def qap_parity(prover, primary, aux, report):
@@ -737,14 +911,12 @@ def qap_parity(prover, primary, aux, report):
     the kernel table's row for K2, the main path's one launch of it)
     against its plain version, timed beside the host conversion it
     replaced; qap_matvec against its plain version on the mint key's own
-    CSR and witness (the stacked A, B and C: each matrix's terms, longest
-    row, rows summed by a warp and empty rows printed), timed with its
-    bound; then
+    CSR and witness (the stacked A, B and C), timed with its bound; then
     the QAP witness map of the last proof once more under
     torch.cuda.set_sync_debug_mode("error"), which raises if anything in
     it waits for the device, and equal to a run without it."""
     from blockmaze_tpu_torch.fields import tfield as tf
-    from blockmaze_tpu_torch.groth16 import keys, qap
+    from blockmaze_tpu_torch.groth16 import qap
     from blockmaze_tpu_torch.ntt import pntt
     dev = prover.device
     m, csr = prover.domain.m, prover.csr
@@ -766,11 +938,6 @@ def qap_parity(prover, primary, aux, report):
         f"host conversion the prover no longer runs) {t_host * 1e3:.1f} ms; "
         f"ints_to_limbs + upload (still run) {t_up * 1e3:.1f} ms")
     w = pntt.mul_elementwise(std, r2)
-    counts = (csr.ptr[1:] - csr.ptr[:-1]).reshape(3, m)
-    for name, c in zip("ABC", counts):
-        log(f"  mint {name}: {int(c.sum())} terms, longest row "
-            f"{int(c.max())}, {int((c > keys.LONG_ROW).sum())} rows over "
-            f"{keys.LONG_ROW} terms, {int((c == 0).sum())} empty rows of {m}")
     nnz = csr.var.shape[0]
     used = int(torch.unique(csr.var).numel())
     record_kernel(report, "qap_matvec", check_kernel(
@@ -799,12 +966,13 @@ def qap_parity(prover, primary, aux, report):
 
 
 def digit_stats(prover):
-    """Per MSM of the last mint proof, on the points and scalars the prover
-    gave it: the share of nonzero c-bit digits, the live items and the
-    lanes (T of L items) msm cuts them into, and the longest run of equal
-    keys, in items and in lanes."""
+    """Per MSM of the prover's last proof, on the points and scalars it
+    gave the MSM: the share of nonzero c-bit digits, the live items and
+    the lanes (T of L items) msm cuts them into, and the longest run of
+    equal keys, in items and in lanes. Returns {MSM: [live, T, L]}."""
     from blockmaze_tpu_torch.msm import pippenger as pp
     c = prover.window
+    out = {}
     for name, (pts, sc) in prover.msm_inputs.items():
         d = pp.digits(sc, c)
         keys, _, _ = pp.live_stream(pts, sc, c)
@@ -816,6 +984,8 @@ def digit_stats(prover):
             f"{float((d != 0).double().mean()):.4f}, live items {live}, "
             f"T={T} L={L}, longest run {run} items = "
             f"{run / max(L, 1):.1f} lanes")
+        out[name] = [live, T, L]
+    return out
 
 
 def mint_stream_parity(prover, report):
