@@ -13,6 +13,7 @@ matvec kernel takes (build_csr).
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -151,6 +152,23 @@ def load_device_pk(path: str) -> DevicePK:
         for f in _COO_FIELDS:
             kw[f] = z[f]
     return DevicePK(**kw)
+
+
+def load_or_build(pk_txt_path: str, cache_dir: str | None = None) -> DevicePK:
+    """The DevicePK of a libsnark-format proving key: its npz cache next to
+    the text file (<base>.v1.npz, also found when the text file is absent)
+    unless the text file is newer; on a miss the Python parser builds it and
+    writes the cache."""
+    cache_dir = cache_dir or os.path.dirname(pk_txt_path)
+    base = os.path.splitext(os.path.basename(pk_txt_path))[0]
+    cache = os.path.join(cache_dir, base + f".v{CACHE_VERSION}.npz")
+    if os.path.exists(cache) and (
+            not os.path.exists(pk_txt_path)
+            or os.path.getmtime(cache) >= os.path.getmtime(pk_txt_path)):
+        return load_device_pk(cache)
+    dpk = build_device_pk(io.load_proving_key(pk_txt_path))
+    save_device_pk(dpk, cache)
+    return dpk
 
 
 # Rows of more terms than this are summed by a warp in the matvec kernel

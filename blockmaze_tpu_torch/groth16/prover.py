@@ -1,8 +1,8 @@
 """Groth16 prover on one torch device: QAP witness map and five MSMs on the
 device, unblinding and the final combine on the host.
 
-Port of blockmaze_tpu/groth16/prover.py (`Prover.__init__` and `prove`;
-r1cs_gg_ppzksnark.tcc:391-506). The witness goes to the device in
+Port of blockmaze_tpu/groth16/prover.py (`Prover.__init__`, `prove` and
+`prove_batch`; r1cs_gg_ppzksnark.tcc:391-506). The witness goes to the device in
 standard form (the MSM scalars) and takes its Montgomery form there (one
 mul_elementwise by R^2); the QAP returns H in standard form:
 
@@ -14,17 +14,21 @@ mul_elementwise by R^2); the QAP returns H in standard form:
   A = alpha + At + r*delta,  B = beta + Bt + s*delta,
   C = Ht + Lt + s*A + r*B1 - r*s*delta
 
-r and s are drawn per proof from `secrets` unless given; each proof also
-draws fresh MSM blinds (msm/pippenger.py), so the proof for a given (r, s)
-is the same whatever the blinds.
+r and s are drawn per proof from `secrets` unless given; each proof (each
+batch, in prove_batch) also draws fresh MSM blinds (msm/pippenger.py), so
+the proof for a given (r, s) is the same whatever the blinds.
 """
 
 from __future__ import annotations
 
+import multiprocessing
+import os
 import secrets
 import time
+from concurrent.futures import ProcessPoolExecutor
 from typing import List, Optional
 
+import numpy as np
 import torch
 
 from ..curves import host_curve as HC
@@ -65,11 +69,12 @@ def _pad_scalars(s, n: int):
 class Prover:
     """Device-resident proving key of one circuit.
 
-    dpk is a DevicePK of this package or of the JAX package (same fields);
-    device is where every tensor lives: the card by default, where the
-    kernels run; "cpu" runs their plain versions. lanes is the most MSM
-    accumulation lanes (pippenger.lane_cut cuts fewer for a sparse
-    stream), window the Pippenger window c."""
+    dpk is a DevicePK of this package (a JAX package key comes over through
+    the shared npz cache, keys.load_device_pk); device is where every
+    tensor lives: the card by default, where the kernels run; "cpu" runs
+    their plain versions. lanes is the most MSM accumulation lanes
+    (pippenger.lane_cut cuts fewer for a sparse stream), window the
+    Pippenger window c."""
 
     def __init__(self, dpk, device="cuda", lanes: Optional[int] = None,
                  window: Optional[int] = None):
@@ -98,6 +103,9 @@ class Prover:
         # x * R^2 * R^-1 = x*R mod r for any x < 2^256 (R^2 mod r is
         # canonical, the operand the product needs)
         self._r2 = tf.to_tensor(FR.r2_limbs[None], self.device)
+        self._consts = (dpk.alpha_g1, dpk.beta_g1, dpk.beta_g2, dpk.delta_g1,
+                        dpk.delta_g2)
+        self._pool = None
         self.timings = {}
         self.msm_inputs = {}
 
@@ -119,8 +127,7 @@ class Prover:
         return pp.msm(curve, pts, scalars, self.window, self.lanes,
                       blind=blind)
 
-    def prove(self, primary: List[int], aux: List[int],
-              r: Optional[int] = None, s: Optional[int] = None) -> Proof:
+    def _check_sizes(self, primary, aux):
         dpk = self.dpk
         if len(primary) != dpk.primary_input_size:
             raise ValueError(f"primary input has {len(primary)} values, the "
@@ -128,14 +135,30 @@ class Prover:
         if len(aux) != dpk.aux_input_size:
             raise ValueError(f"auxiliary input has {len(aux)} values, the "
                              f"key wants {dpk.aux_input_size}")
+
+    def _msms(self, wires_std, H_std, b1, b2):
+        """The five blinded MSMs of one proof: (A, B g2, B g1, H, L), each
+        (X, Y, Z, window counts of the blind) on the device."""
+        At = self._msm("A", "g1", self.A, wires_std, self.nA, b1)
+        b_scalars = wires_std.index_select(0, self.B_idx)
+        Bt2 = self._msm("B g2", "g2", self.B2, b_scalars, self.nB, b2)
+        Bt1 = self._msm("B g1", "g1", self.B1, b_scalars, self.nB, b1)
+        Ht = self._msm("H", "g1", self.H, H_std, self.nH, b1)
+        Lt = self._msm("L", "g1", self.L,
+                       wires_std[self.dpk.primary_input_size + 1:], self.nL,
+                       b1)
+        return At, Bt2, Bt1, Ht, Lt
+
+    def prove(self, primary: List[int], aux: List[int],
+              r: Optional[int] = None, s: Optional[int] = None) -> Proof:
+        self._check_sizes(primary, aux)
         r = secrets.randbelow(R_MOD) if r is None else r
         s = secrets.randbelow(R_MOD) if s is None else s
         self.timings = {}
         self.msm_inputs = {}
         t0 = time.perf_counter()
 
-        wires = [1] + list(primary) + list(aux)
-        wires_std = tf.to_tensor(tf.ints_to_limbs(wires), self.device)
+        wires_std = tf.to_tensor(_wire_limbs(primary, aux), self.device)
         wires_mont = pntt.mul_elementwise(wires_std, self._r2)
         R1, b1 = pp.make_blind("g1", self.device)
         R2, b2 = pp.make_blind("g2", self.device)
@@ -145,35 +168,120 @@ class Prover:
                                  self.tables, std=True)[:self.domain.m - 1]
         t0 = self._lap("qap", t0)
 
-        At = self._msm("A", "g1", self.A, wires_std, self.nA, b1)
-        b_scalars = wires_std.index_select(0, self.B_idx)
-        Bt2 = self._msm("B g2", "g2", self.B2, b_scalars, self.nB, b2)
-        Bt1 = self._msm("B g1", "g1", self.B1, b_scalars, self.nB, b1)
-        Ht = self._msm("H", "g1", self.H, H_std, self.nH, b1)
-        Lt = self._msm("L", "g1", self.L,
-                       wires_std[dpk.primary_input_size + 1:], self.nL, b1)
+        msms = self._msms(wires_std, H_std, b1, b2)
         t0 = self._lap("msm", t0)
 
-        c = self.window
-
-        def g1(res):
-            pt = tc.g1_jacobian_to_host(tuple(v[None] for v in res[:3]))[0]
-            return pp.unblind_msm("g1", pt, res[3].cpu().numpy(), R1, c)
-
-        At_h, Bt1_h, Ht_h, Lt_h = g1(At), g1(Bt1), g1(Ht), g1(Lt)
-        Bt2_h = pp.unblind_msm(
-            "g2", tc.g2_jacobian_to_host(tuple(v[None] for v in Bt2[:3]))[0],
-            Bt2[3].cpu().numpy(), R2, c)
-
-        g1_A = HC.g1_add(HC.g1_add(dpk.alpha_g1, At_h),
-                         HC.g1_mul(dpk.delta_g1, r))
-        g1_B = HC.g1_add(HC.g1_add(dpk.beta_g1, Bt1_h),
-                         HC.g1_mul(dpk.delta_g1, s))
-        g2_B = HC.g2_add(HC.g2_add(dpk.beta_g2, Bt2_h),
-                         HC.g2_mul(dpk.delta_g2, s))
-        g1_C = HC.g1_add(
-            HC.g1_add(HC.g1_add(Ht_h, Lt_h), HC.g1_mul(g1_A, s)),
-            HC.g1_add(HC.g1_mul(g1_B, r),
-                      HC.g1_neg(HC.g1_mul(dpk.delta_g1, r * s % R_MOD))))
+        proof = _combine(self._consts, self.window, _to_numpy(msms), R1, R2,
+                         r, s)
         self._lap("combine", t0)
-        return Proof(a=g1_A, b=g2_B, c=g1_C)
+        return proof
+
+    def prove_batch(self, instances, rs: Optional[List[int]] = None,
+                    ss: Optional[List[int]] = None) -> List[Proof]:
+        """Proofs of B (primary, aux) witnesses of this circuit, proofs[i]
+        equal to prove(*instances[i], rs[i], ss[i]); r and s are drawn per
+        proof from `secrets` unless given. One blind pair serves the batch,
+        and each proof is unblinded with its own window counts, as the JAX
+        package's prove_batch does.
+
+        There is no batch axis through the kernels: this thread turns each
+        witness into limbs, uploads it and runs its QAP and MSMs (waiting
+        for the device at each MSM's live count and for its results), with
+        no sync between phases; the host combine of each proof (Python
+        integer group arithmetic, most of a proof's host time) runs in
+        worker processes meanwhile, outside this interpreter's lock.
+        timings holds the batch's phases: blinds, limbs (summed), dispatch
+        (this thread's loop) and drain (the combines left after it)."""
+        for primary, aux in instances:
+            self._check_sizes(primary, aux)
+        B = len(instances)
+        rs = [secrets.randbelow(R_MOD) for _ in range(B)] if rs is None \
+            else list(rs)
+        ss = [secrets.randbelow(R_MOD) for _ in range(B)] if ss is None \
+            else list(ss)
+        if len(rs) != B or len(ss) != B:
+            raise ValueError(f"{B} instances, {len(rs)} r and {len(ss)} s")
+        if B == 0:
+            return []
+        self.timings = {"limbs": 0.0}
+        self.msm_inputs = {}
+        t0 = time.perf_counter()
+        R1, b1 = pp.make_blind("g1", self.device)
+        R2, b2 = pp.make_blind("g2", self.device)
+        t0 = self._lap("blinds", t0)
+        pool = self._host_pool()
+        proofs = []
+        for (primary, aux), r, s in zip(instances, rs, ss):
+            t = time.perf_counter()
+            limbs = _wire_limbs(primary, aux)
+            self.timings["limbs"] += time.perf_counter() - t
+            wires_std = tf.to_tensor(limbs, self.device)
+            wires_mont = pntt.mul_elementwise(wires_std, self._r2)
+            H_std = qap.qap_h_arrays(self.domain, self.csr, wires_mont,
+                                     self.tables, std=True)[:self.domain.m - 1]
+            msms = _to_numpy(self._msms(wires_std, H_std, b1, b2))
+            proofs.append(pool.submit(_combine, self._consts, self.window,
+                                      msms, R1, R2, r, s))
+        t0 = self._lap("dispatch", t0)
+        proofs = [p.result() for p in proofs]
+        self._lap("drain", t0)
+        return proofs
+
+    def _host_pool(self) -> ProcessPoolExecutor:
+        """prove_batch's worker processes (spawned, so no CUDA state is
+        inherited), started at its first call and kept until close()."""
+        if self._pool is None:
+            self._pool = ProcessPoolExecutor(
+                max_workers=HOST_WORKERS,
+                mp_context=multiprocessing.get_context("spawn"))
+        return self._pool
+
+    def close(self):
+        """Stop prove_batch's worker processes, if any were started."""
+        if self._pool is not None:
+            self._pool.shutdown()
+            self._pool = None
+
+
+# prove_batch's host combine processes: one proof's combine costs about
+# what the dispatching thread spends on one to two proofs
+HOST_WORKERS = max(1, min(4, (os.cpu_count() or 1) - 1))
+
+
+def _wire_limbs(primary, aux) -> np.ndarray:
+    """The wires (1, primary, aux) as (n, 16) uint32 standard-form limbs."""
+    return tf.ints_to_limbs([1] + list(primary) + list(aux))
+
+
+def _to_numpy(msms):
+    """The MSM results as host numpy arrays (waits for the device)."""
+    return tuple(tuple(t.cpu().numpy() for t in res) for res in msms)
+
+
+def _combine(consts, c: int, msms, R1, R2, r: int, s: int) -> Proof:
+    """The host half of a proof: each MSM (X, Y, Z, blind window counts as
+    numpy arrays, in _msms' order) to affine, less its blind's surplus
+    against R1 or R2, then A, B and C with r and s. consts: the key's
+    (alpha_g1, beta_g1, beta_g2, delta_g1, delta_g2). A module-level
+    function of picklable arguments, so prove_batch's worker processes run
+    it."""
+    alpha_g1, beta_g1, beta_g2, delta_g1, delta_g2 = consts
+    At, Bt2, Bt1, Ht, Lt = msms
+
+    def g1(res):
+        pt = tc.g1_jacobian_to_host(tuple(v[None] for v in res[:3]))[0]
+        return pp.unblind_msm("g1", pt, res[3], R1, c)
+
+    At_h, Bt1_h, Ht_h, Lt_h = g1(At), g1(Bt1), g1(Ht), g1(Lt)
+    Bt2_h = pp.unblind_msm(
+        "g2", tc.g2_jacobian_to_host(tuple(v[None] for v in Bt2[:3]))[0],
+        Bt2[3], R2, c)
+
+    g1_A = HC.g1_add(HC.g1_add(alpha_g1, At_h), HC.g1_mul(delta_g1, r))
+    g1_B = HC.g1_add(HC.g1_add(beta_g1, Bt1_h), HC.g1_mul(delta_g1, s))
+    g2_B = HC.g2_add(HC.g2_add(beta_g2, Bt2_h), HC.g2_mul(delta_g2, s))
+    g1_C = HC.g1_add(
+        HC.g1_add(HC.g1_add(Ht_h, Lt_h), HC.g1_mul(g1_A, s)),
+        HC.g1_add(HC.g1_mul(g1_B, r),
+                  HC.g1_neg(HC.g1_mul(delta_g1, r * s % R_MOD))))
+    return Proof(a=g1_A, b=g2_B, c=g1_C)

@@ -40,10 +40,21 @@ Phases, each timed; any failure raises and the script exits nonzero:
      domain the QAP witness map on the card against its plain path on the
      card, on the circuit's own CSR and witness; on deposit20 the four MSM
      kernels at c = 13, W = 20 against their plain versions on the proof's
-     own A and H streams.
+     own A and H streams;
+  5. the zktx service and the node lifecycle with real proofs, at Merkle
+     depth 8 and then 20 (scripts/lifecycle.py on the port): ZkTx on
+     cuda:0 over phases 3-4's keys, warm(), mint 100 -> send 40 -> deposit
+     -> redeem 25 between two Nodes, every proof verified at pool admission
+     and at block import, the balances, a double deposit rejected and a
+     wallet reloaded; synthesis, prove and verify seconds per transaction;
+  6. Prover.prove_batch on mint (step domain) and deposit (basic, 2^19):
+     four distinct witnesses, each batch proof verified and equal to prove
+     at the same (r, s), and batches of B = 1, 2, 4, 8 (mint) and 1, 4
+     (deposit) timed beside B x the steady single proof.
 Each circuit's launch counts are reset just before its keygen and read
 just after it, and reset again just before its three proofs and read just
-after them: each path must launch each of its kernels. The prove path by
+after them; phase 5 reads them around each transaction and phase 6 around
+each batch: each path must launch each of its kernels. The prove path by
 domain kind (PROVE_PATH): never the batched point kernels (add, double,
 mixed adds), which the bucket reduction replaced there, nor the
 single-stage butterfly, which fft replaced; on a step domain at most 28
@@ -210,6 +221,19 @@ def main():
         t0 = time.perf_counter()
         path_counts += phase4(circuit, dev, report)
         log(f"phase 4 {circuit}: {time.perf_counter() - t0:.1f}s")
+
+    # ---- phase 5: the zktx service and node lifecycle, real proofs -------
+    for depth in (8, 20):
+        t0 = time.perf_counter()
+        path_counts += phase5(depth, dev)
+        log(f"phase 5 lifecycle depth {depth}: "
+            f"{time.perf_counter() - t0:.1f}s")
+
+    # ---- phase 6: prove_batch ----------------------------------------
+    for name in BATCHES:
+        t0 = time.perf_counter()
+        path_counts += phase6(name, dev)
+        log(f"phase 6 prove_batch {name}: {time.perf_counter() - t0:.1f}s")
     for name in kn.K:
         report[name]["launches"] = sum(c.get(name, 0) for c in path_counts)
     log(f"total: {time.perf_counter() - t_all:.1f}s")
@@ -756,8 +780,7 @@ def run_circuit(name, dev):
         f"{len(pb.constraints)} constraints, satisfied "
         f"({summary['synthesis_s']}s)")
     t0 = time.perf_counter()
-    cache = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                         "blockmaze_tpu_torch", "_keys")
+    cache = key_cache()
     kn.reset_counts()
     dpk, vk, generated = generator.generate_cached(pb, name, SEED, cache,
                                                    dev)
@@ -1069,19 +1092,314 @@ def lane_sweep(prover):
         log(f"    lanes={lanes}: " + ", ".join(row))
 
 
-def profile_prove(prover, primary, aux):
-    """One more steady proof under torch.profiler: device time by kernel
-    and the device's busy share of the proof's wall time. Busy time sums
-    the device's own rows (kernels, copies) once each; an operator's row
-    repeats the device time of the kernels it launched, so the sum over
-    every row counts torch's own kernels twice and is printed apart."""
+# ---------------------------------------------------------------------------
+# Phase 5: the zktx service and the node lifecycle with real proofs
+# ---------------------------------------------------------------------------
+
+SERVICE_CIRCUITS = ["mint", "send", "deposit", "redeem"]
+
+
+def key_cache() -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "blockmaze_tpu_torch", "_keys")
+
+
+def service_keys(depth: int) -> str:
+    """A key directory for ZkTx at Merkle depth `depth`: <name>pk.v1.npz
+    and <name>vk.txt linked to the keys phases 3-4 cached (deposit20's as
+    deposit at depth 20); keys.load_or_build takes the npz when the text
+    key is absent."""
+    cache = key_cache()
+    kdir = os.path.join(cache, f"zktx_d{depth}")
+    os.makedirs(kdir, exist_ok=True)
+    for name in SERVICE_CIRCUITS:
+        src = "deposit20" if name == "deposit" and depth == 20 else name
+        for have, want in ((".v1.npz", "pk.v1.npz"), ("_vk.txt", "vk.txt")):
+            target = os.path.join(cache, f"{src}_s{SEED}{have}")
+            if not os.path.exists(target):
+                raise FileNotFoundError(f"{target}: phases 3-4 cache it")
+            link = os.path.join(kdir, name + want)
+            if os.path.lexists(link):
+                os.remove(link)
+            os.symlink(target, link)
+    return kdir
+
+
+def instrument(svc):
+    """Wrap the service's gen_*_proof and verify_*_proof and each prover's
+    prove (instance attributes over the methods) to record, per call, its
+    seconds, its result (ok) and for prove the prover's phases. Returns
+    the record lists."""
+    rec = {"gen": [], "prove": [], "verify": []}
+
+    def wrap(obj, attr, key, prover=None):
+        fn = getattr(obj, attr)
+
+        def timed_call(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            entry = {"s": time.perf_counter() - t0, "ok": out}
+            if prover is not None:
+                entry["phases"] = dict(prover.timings)
+            rec[key].append(entry)
+            return out
+
+        setattr(obj, attr, timed_call)
+
+    for name in SERVICE_CIRCUITS:
+        prover = svc.circuits[name].prover
+        wrap(prover, "prove", "prove", prover)
+        wrap(svc, f"gen_{name}_proof", "gen")
+        wrap(svc, f"verify_{name}_proof", "verify")
+    return rec
+
+
+def phase5(depth: int, dev):
+    """scripts/lifecycle.py on the port: ZkTx on cuda:0 at Merkle depth
+    `depth` over phases 3-4's keys, warm(), a Network with alice and bob
+    Nodes in temporary datadirs, mint 100 -> send 40 -> deposit -> redeem
+    25 with a block mined after each; every proof verified at pool
+    admission and at block import; the balances of lifecycle.py:73-76; a
+    double deposit rejected; alice's wallet reloaded from its datadir. Per
+    transaction: synthesis, prove (with phases) and verify seconds, and the
+    proof's launches against its domain kind's prove path. Returns the
+    transactions' launch counts."""
+    import tempfile
+    from blockmaze_tpu_torch.node import Network, Node
+    from blockmaze_tpu_torch.node.node import NodeError
+    from blockmaze_tpu_torch.utils import kernels as kn
+    from blockmaze_tpu_torch.zktx.api import ZkTx
+
+    t0 = time.perf_counter()
+    svc = ZkTx(service_keys(depth), merkle_depth=depth, device=dev)
+    svc.warm()
+    torch.cuda.synchronize()
+    log(f"  ZkTx(depth {depth}).warm(): {time.perf_counter() - t0:.1f}s "
+        f"(keys, Provers, kernel library)")
+    kinds = {n: domain_kind(svc.circuits[n].prover.domain)
+             for n in SERVICE_CIRCUITS}
+    rec = instrument(svc)
+    path_counts, summary = [], []
+    with tempfile.TemporaryDirectory(prefix="bm_lifecycle_") as tmp:
+        net = Network(svc, seed=42)
+        da, db = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+        alice, bob = Node(net, da), Node(net, db)
+        net.fund(alice.address, 500)
+        net.fund(bob.address, 10)
+
+        def tx(label, name, fn, mine=True):
+            for v in rec.values():
+                v.clear()
+            kn.reset_counts()
+            t0 = time.perf_counter()
+            try:
+                out = fn()
+                blk = net.mine_block() if mine else None
+            finally:
+                torch.cuda.synchronize()
+                path_counts.append(kn.counts())
+                wall = time.perf_counter() - t0
+            if len(rec["gen"]) != 1 or len(rec["prove"]) != 1:
+                raise AssertionError(f"{label}: {len(rec['prove'])} proofs")
+            if mine and [v["ok"] for v in rec["verify"]] != [True, True]:
+                raise AssertionError(f"{label}: verified {rec['verify']}")
+            check_prove_counts(kinds[name], path_counts[-1], 1)
+            p = rec["prove"][0]
+            row = {"tx": label, "synthesis_s": round(
+                rec["gen"][0]["s"] - p["s"], 3), "prove_s": round(p["s"], 4),
+                "phases": {k: round(v, 4) for k, v in p["phases"].items()},
+                "verify_s": [round(v["s"], 3) for v in rec["verify"]],
+                "wall_s": round(wall, 2)}
+            summary.append(row)
+            log(f"  [{label}] synthesis {row['synthesis_s']}s, prove "
+                f"{row['prove_s']}s phases {json.dumps(row['phases'])}, "
+                f"verify {row['verify_s']}s"
+                + (f", block #{blk['number']} cmts={len(blk['cmt'])}"
+                   if blk else ""))
+            return out
+
+        tx("mint alice +100", "mint", lambda: alice.send_mint_transaction(100))
+        h_send = tx("send alice->bob 40", "send",
+                    lambda: alice.send_send_transaction(
+                        40, bob.get_pub_key_rlp()))
+        tx("deposit bob claims", "deposit",
+           lambda: bob.send_deposit_transaction(h_send))
+        tx("redeem bob -25", "redeem", lambda: bob.send_redeem_transaction(25))
+        ba, bb = alice.get_balance2(), bob.get_balance2()
+        log(f"  alice: {ba}")
+        log(f"  bob:   {bb}")
+        if (ba["wallet_value"], bb["wallet_value"], net.balance_of(
+                bob.address), net.balance_of(alice.address)) != \
+                (60, 15, 35, 400):
+            raise AssertionError("lifecycle balances differ from "
+                                 "scripts/lifecycle.py's")
+
+        def double_deposit():
+            try:
+                bob.send_deposit_transaction(h_send)
+            except NodeError as e:
+                log(f"  double deposit rejected: {e}")
+                return
+            raise AssertionError("double deposit was not rejected")
+
+        tx("double deposit (rejected)", "deposit", double_deposit,
+           mine=False)
+        if Node(net, da).wallet.sequence_number_after.value != 60:
+            raise AssertionError("alice's wallet did not reload from its "
+                                 "datadir")
+        log("  alice's wallet reloaded from its datadir: value 60")
+    log(f"  lifecycle summary: {json.dumps({'depth': depth, 'txs': summary})}")
+    return path_counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: Prover.prove_batch
+# ---------------------------------------------------------------------------
+
+BATCHES = {"mint": (1, 2, 4, 8), "deposit": (1, 4)}
+
+
+def batch_instance(name: str, i: int):
+    """Witness i of a batch of `name` (mint, or deposit at depth 8): values
+    and randomness varied per slot as scripts/batch.py varies mint's; the
+    witness alone, as the service synthesises it. (primary, aux)."""
+    from blockmaze_tpu_torch.circuits.deposit import DepositGadget
+    from blockmaze_tpu_torch.circuits.mint import MintGadget
+    from blockmaze_tpu_torch.crypto import notes as NT
+    from blockmaze_tpu_torch.merkle import incremental as MK
+    from blockmaze_tpu_torch.r1cs.protoboard import Protoboard
+    sk = NT.uint256_from_hex("1")
+    r_old = NT.uint256_from_hex(f"{123456 + i:x}")
+    r = NT.uint256_from_hex(f"{123 + i:x}")
+    pb = Protoboard()
+    if name == "mint":
+        note_old = NT.Note(6 + i, NT.compute_prf(sk, r_old), r_old)
+        note = NT.Note(13 + i, NT.compute_prf(sk, r), r)
+        MintGadget(pb).generate_witness(note_old, note, note_old.cm(),
+                                        note.cm(), 7, sk)
+    else:
+        r_s = NT.uint256_from_hex(f"{789 + i:x}")
+        pk_recv = int("123", 16).to_bytes(20, "little")
+        note_old = NT.Note(255 + i, NT.compute_prf(sk, r_old), r_old)
+        note_s = NT.NoteS(9, pk_recv, r_s, NT.uint256_from_hex("123"))
+        note = NT.Note(264 + i, NT.compute_prf(sk, r), r)
+        tree = MK.IncrementalMerkleTree(MK.DEPTH)
+        wit = None
+        for k in range(16):
+            leaf = note_s.cm() if k == 9 else NT.uint256_from_hex(
+                f"{k + 1 + 16 * i:x}")
+            if wit is not None:
+                wit.append(leaf)
+            else:
+                tree.append(leaf)
+            if k == 9:
+                wit = tree.witness()
+        DepositGadget(pb, depth=MK.DEPTH).generate_witness(
+            note_s, note_old, note, note_s.cm(), note_old.cm(), note.cm(),
+            wit.root(), wit.path(), NT.compute_prf(sk, r_s), sk)
+    return pb.primary_input(), pb.auxiliary_input()
+
+
+def phase6(name: str, dev):
+    """Prover.prove_batch on `name` (mint: step domain; deposit: basic,
+    2^19) through the depth-8 service's Prover: four distinct witnesses; a
+    batch at given (rs, ss) whose proofs each verify, each equal prove at
+    the same (r, s), and fail against another instance's primary input;
+    then batches of B proofs (BATCHES; witnesses repeated past four, (r, s)
+    random) timed beside B x the steady single proof of the same run, each
+    proof verified, the launches per proof within the prove path's; mint's
+    B = 4 batch once more under torch.profiler for the device's busy
+    share. Returns the batches' launch counts."""
+    from blockmaze_tpu_torch.groth16 import verifier
+    from blockmaze_tpu_torch.utils import kernels as kn
+    from blockmaze_tpu_torch.zktx.api import ZkTx
+
+    t0 = time.perf_counter()
+    insts = [batch_instance(name, i) for i in range(4)]
+    log(f"  {name}: 4 witnesses in {time.perf_counter() - t0:.1f}s "
+        f"(not timed below)")
+    ctx = ZkTx(service_keys(8), merkle_depth=8, device=dev).circuits[name]
+    prover, vk = ctx.prover, ctx.vk
+    kind = domain_kind(prover.domain)
+    prover.prove(*insts[0])
+    single = []
+    for i in range(3):
+        t0 = time.perf_counter()
+        prover.prove(*insts[i + 1])
+        single.append(time.perf_counter() - t0)
+    one = sorted(single)[1]
+    log(f"  steady single proofs: {[round(t, 4) for t in single]} s, "
+        f"median {one:.4f}s")
+
+    rs, ss = [1, 2, 3, 4], [51, 52, 53, 54]
+    path_counts = []
+    kn.reset_counts()
+    t0 = time.perf_counter()
+    proofs = prover.prove_batch(insts, rs=rs, ss=ss)
+    torch.cuda.synchronize()
+    path_counts.append(kn.counts())
+    log(f"  first prove_batch (B=4; starts the worker processes): "
+        f"{time.perf_counter() - t0:.3f}s")
+    check_prove_counts(kind, path_counts[-1], 4)
+    for i, proof in enumerate(proofs):
+        want = prover.prove(*insts[i], r=rs[i], s=ss[i])
+        if (proof.a, proof.b, proof.c) != (want.a, want.b, want.c):
+            raise AssertionError(f"{name} batch proof {i} != prove at equal "
+                                 f"(r, s)")
+        if not verifier.verify(vk, insts[i][0], proof):
+            raise AssertionError(f"{name} batch proof {i} rejected")
+    if verifier.verify(vk, insts[1][0], proofs[0]):
+        raise AssertionError(f"{name} batch proof 0 accepted for instance 1")
+    log(f"  prove_batch of 4 at (rs, ss) = ({rs}, {ss}): each verified, "
+        f"each equal to prove at its (r, s); proof 0 rejected for "
+        f"instance 1's input")
+
+    rows = []
+    for B in BATCHES[name]:
+        batch = [insts[i % 4] for i in range(B)]
+        kn.reset_counts()
+        t0 = time.perf_counter()
+        proofs = prover.prove_batch(batch)
+        dt = time.perf_counter() - t0
+        path_counts.append(kn.counts())
+        check_prove_counts(kind, path_counts[-1], B)
+        if not all(verifier.verify(vk, p_a[0], p)
+                   for p_a, p in zip(batch, proofs)):
+            raise AssertionError(f"{name} batch of {B}: a proof rejected")
+        phases = {k: round(v, 4) for k, v in prover.timings.items()}
+        rows.append({"B": B, "s": round(dt, 4),
+                     "proofs_per_s": round(B / dt, 2),
+                     "B_x_single_s": round(B * one, 4), "phases": phases})
+        log(f"  prove_batch B={B}: {dt:.4f}s = {B / dt:.2f} proofs/s "
+            f"(B x single proof {B * one:.4f}s = {1 / one:.2f} proofs/s); "
+            f"phases {json.dumps(phases)}; all verified")
+    summary = {"circuit": name, "domain": kind, "single_s": round(one, 4),
+               "batches": rows}
+    if name == "mint":
+        wall, _, busy, _ = profiled(lambda: prover.prove_batch(insts))
+        summary["profiled_B4"] = {"wall_s": round(wall, 4),
+                                  "busy_s": round(busy, 4)}
+        log(f"  profiled prove_batch B=4: wall {wall:.3f}s (profiler on), "
+            f"device busy {busy * 1e3:.1f} ms = {100 * busy / wall:.1f}%")
+    prover.close()
+    log(f"  batch summary: {json.dumps(summary)}")
+    return path_counts
+
+
+def profiled(fn):
+    """Run fn once under torch.profiler: (wall s, rows, device busy s, sum
+    over every row s). Busy time sums the device's own rows (kernels,
+    copies) once each; an operator's row repeats the device time of the
+    kernels it launched, so the sum over every row counts torch's own
+    kernels twice. rows: (key, device us, count, is a device row), most
+    device time first."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        prover.prove(primary, aux)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
@@ -1093,7 +1411,13 @@ def profile_prove(prover, primary, aux):
             for e in prof.key_averages() if dev_us(e) > 0]
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows if r[3]) / 1e6
-    every_row = sum(r[1] for r in rows) / 1e6
+    return wall, rows, busy, sum(r[1] for r in rows) / 1e6
+
+
+def profile_prove(prover, primary, aux):
+    """One more steady proof under torch.profiler: device time by kernel
+    and the device's busy share of the proof's wall time."""
+    wall, rows, busy, every_row = profiled(lambda: prover.prove(primary, aux))
     phases = {k: round(v, 4) for k, v in prover.timings.items()}
     log(f"  profiled steady prove: wall {wall:.3f}s (profiler on), device "
         f"busy {busy * 1e3:.1f} ms = {100 * busy / wall:.1f}% of wall "

@@ -1,7 +1,9 @@
 """The port's own copies of the JAX package's host modules agree with the
 originals: the constants, the host curve group law, the verifier on one
-toy proof, and the mint circuit (variables, constraints and witness)."""
+toy proof, the mint circuit (variables, constraints and witness), and the
+service-side modules copied verbatim (text-equal files)."""
 
+import os
 import random
 
 import pytest
@@ -23,6 +25,22 @@ from blockmaze_tpu_torch.r1cs.protoboard import LC, Protoboard
 
 # small tensors: one intra-op thread per test process (xdist runs several)
 torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# modules the port holds verbatim: their imports are relative, so the same
+# text names the port's own modules
+VERBATIM = ["config.py", "crypto/keccak.py", "zktx/__init__.py",
+            "zktx/aux.py", "chain/__init__.py", "chain/state.py",
+            "node/__init__.py", "node/node.py", "node/wallet.py",
+            "r1cs/examples.py"]
+
+
+@pytest.mark.parametrize("path", VERBATIM)
+def test_verbatim_copy_equal(path):
+    with open(os.path.join(ROOT, "blockmaze_tpu", path)) as f:
+        want = f.read()
+    with open(os.path.join(ROOT, "blockmaze_tpu_torch", path)) as f:
+        assert f.read() == want
 
 
 def test_constants_equal():
