@@ -3,9 +3,10 @@
 //
 // Replaces: blockmaze_tpu/curves/pcurve.py `add`, `double`, `mixed_add`
 // and `mixed_add_noexc` (each a Pallas kernel over limb-major tiles running
-// the jcurve formulas). add and double carry the MSM's boundary scan and
-// triangle tree; mixed_add, mixed_add_noexc and one add carry the keygen's
-// fixed-base exponentiation.
+// the jcurve formulas). They run on neither the prove path nor the keygen
+// path: the MSM's reduction (combine.cu, triangle.cu, fold.cu) and keygen's
+// fixed-base exponentiation (fixed_base.cu) have kernels of their own.
+// chip_smoke.py holds them against their plain versions.
 //
 // What bounds them on this card: integer multiplies. A G1 add is ~16 Fq
 // CIOS products for 288 bytes of limbs in and 192 out; G2 costs about three

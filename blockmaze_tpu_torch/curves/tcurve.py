@@ -43,6 +43,10 @@ class FqOps:
     def sub(a, b):
         return tf.sub(FQ, a, b)
 
+    @staticmethod
+    def inv(a):
+        return tf.inv(FQ, a)
+
     is_zero = staticmethod(tf.is_zero)
     select = staticmethod(tf.select)
 
@@ -74,6 +78,15 @@ class Fq2Ops:
                         torch.stack([tf.sub(FQ, a0, a1), a1], -2))
         c1 = t[..., 1, :]
         return torch.stack([t[..., 0, :], tf.add(FQ, c1, c1)], -2)
+
+    @staticmethod
+    def inv(a):
+        """(a0 - a1 u) / (a0^2 + a1^2); 0 maps to 0."""
+        a0, a1 = a[..., 0, :], a[..., 1, :]
+        ti = tf.inv(FQ, tf.add(FQ, tf.mont_mul(FQ, a0, a0),
+                               tf.mont_mul(FQ, a1, a1)))
+        return torch.stack([tf.mont_mul(FQ, a0, ti),
+                            tf.neg(FQ, tf.mont_mul(FQ, a1, ti))], -2)
 
     @staticmethod
     def add(a, b):
@@ -227,6 +240,18 @@ def point_mixed_add_noexc(F, P, Qx, Qy, q_inf):
     X3, Y3, Z3, _, _ = _madd_core(F, X1, Y1, Z1, Qx, Qy)
     return (F.select(q_inf, X1, X3), F.select(q_inf, Y1, Y3),
             F.select(q_inf, Z1, Z3))
+
+
+def jacobian_to_affine(curve: str, P):
+    """Jacobian batch -> affine (x, y) Montgomery int32 tensors and a bool
+    infinity mask, as the proving key stores points (infinity: x = y = 0).
+    Z^-1 by Fermat; Z = 0 inverts to 0, which zeroes x and y."""
+    F = ops(curve)
+    X, Y, Z = P
+    zi = F.inv(Z)
+    zi2 = F.sqr(zi)
+    return (F.mul(X, zi2).to(torch.int32),
+            F.mul(Y, F.mul(zi2, zi)).to(torch.int32), F.is_zero(Z))
 
 
 # ---------------------------------------------------------------------------

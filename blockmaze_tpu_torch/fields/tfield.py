@@ -230,6 +230,19 @@ def canon_wide(spec: FieldSpec, wide):
     return acc
 
 
+def inv(spec: FieldSpec, a):
+    """a^(p-2) (Fermat) by left-to-right square-and-multiply from the top
+    bit of p - 2, the chain of csrc/field.cuh inv_e: the inverse, in
+    Montgomery form for a Montgomery-form a; 0 maps to 0."""
+    a = _i64(a)
+    r = a
+    for bit in bin(spec.modulus - 2)[3:]:
+        r = mont_mul(spec, r, r)
+        if bit == "1":
+            r = mont_mul(spec, r, a)
+    return r
+
+
 def from_mont(spec: FieldSpec, a):
     one = torch.zeros(N, dtype=torch.int64, device=a.device)
     one[0] = 1

@@ -5,8 +5,10 @@ Port of blockmaze_tpu/groth16/generator.py (r1cs_gg_ppzksnark.tcc:223-388).
 The host parts are the JAX package's, copied because that module imports
 jax: toxic-waste sampling, QAP instance evaluation at t (Lagrange
 coefficients and the sparse contraction), window tables. The device part,
-fixed_base_exp, computes scalar_i * base for a whole query vector with one
-table gather and one batched mixed add per window.
+fixed_base_exp, computes scalar_i * base for a whole query vector in one
+kernel launch (csrc/fixed_base.cu) that ends in the affine Montgomery limbs
+the proving key stores; generate_cached builds the cached DevicePK from
+those arrays directly.
 """
 
 from __future__ import annotations
@@ -14,21 +16,24 @@ from __future__ import annotations
 import os
 import random
 import secrets
-from typing import Dict, List
+import time
+from typing import Dict, List, NamedTuple
 
+import numpy as np
 import torch
 
 from ..curves import host_curve as HC
 from ..curves import pairing as PR
-from ..curves import pcurve as pc
 from ..curves import tcurve as tc
 from ..fields import tfield as tf
 from ..fields.constants import R_MOD
 from ..msm import pippenger as pp
 from ..ntt import domain as D
+from ..ntt import pntt
 from ..ntt.tntt import batch_modinv
 from ..r1cs.protoboard import Protoboard
 from ..serialization import libsnark_io as io
+from ..utils import kernels as kn
 from . import keys as K
 
 WINDOW_C = 8
@@ -125,9 +130,19 @@ def _host_window_table(base, add, zero):
     return table
 
 
-def window_table(curve: str, base, device):
-    """The window table of `base` as (x, y, inf) tensors of shape
-    (W, 2^c, ...) on `device`."""
+class WindowTable(NamedTuple):
+    """A base's window table on a device: T[w][d] = d * 2^(c*w) * base as
+    affine Montgomery (x, y, inf) of shape (W, 2^c, ...), and the same
+    entries in fixed_base_exp's kernel layout (pack_table; inf as uint8)."""
+    x: torch.Tensor
+    y: torch.Tensor
+    inf: torch.Tensor
+    packed: torch.Tensor
+    flags: torch.Tensor
+
+
+def window_table(curve: str, base, device) -> WindowTable:
+    """The window table of `base` on `device`."""
     if curve == "g1":
         table = _host_window_table(base, HC.g1_add, HC.G1_ZERO)
         conv = tc.g1_affine_to_device
@@ -136,69 +151,116 @@ def window_table(curve: str, base, device):
         conv = tc.g2_affine_to_device
     x, y, inf = conv([p for row in table for p in row])
     shape = (N_WINDOWS, 1 << WINDOW_C)
-    return (tf.to_tensor(x, device).reshape(shape + x.shape[1:]),
-            tf.to_tensor(y, device).reshape(shape + y.shape[1:]),
-            torch.from_numpy(inf).to(device).reshape(shape))
+    tx = tf.to_tensor(x, device).reshape(shape + x.shape[1:])
+    ty = tf.to_tensor(y, device).reshape(shape + y.shape[1:])
+    tinf = torch.from_numpy(inf).to(device).reshape(shape)
+    return WindowTable(tx, ty, tinf, pack_table(tx, ty),
+                       tinf.to(torch.uint8).contiguous())
 
 
-def fixed_base_exp(curve: str, table, scalars_std, blind):
-    """scalars_i * base for (n, 16) standard-form scalars, as a Jacobian
-    batch; table from window_table, blind = (B host affine point,
-    (Bx, By) Montgomery tensors) with B a secret random group element.
+def pack_table(tx, ty) -> torch.Tensor:
+    """fixed_base_exp's kernel table: entry w * 2^c + d is T[w][d]'s x then
+    y as 32-bit words, (W * 2^c, 16) int32 for G1, (W * 2^c, 32) for G2."""
+    def words(t):
+        t = t.to(torch.int64).reshape(t.shape[0] * t.shape[1], -1)
+        w = t[:, 0::2] | (t[:, 1::2] << 16)
+        return w - ((w >> 31) << 32)        # as int32, two's complement
 
-    The accumulator can be infinity only before the blind is in: window 0
-    and the blind B join through the complete mixed add (kernel mixed_add).
-    From then on acc = B + partial sum, which is infinity or +-(next table
-    point) only if B is, with probability about n*W/r, so windows 1..W-1
-    run the exception-free mixed add (kernel mixed_add_noexc), as the MSM
-    stream does. A complete add of -B (kernel add) removes the blind."""
-    tx, ty, tinf = table
+    return torch.cat([words(tx), words(ty)], 1).to(torch.int32).contiguous()
+
+
+def fixed_base_exp_plain(curve: str, table, scalars_std, blind):
+    """The kernel's ladder in plain torch ops: window 0 and the blind B
+    through the complete mixed add, windows 1..W-1 through the exception-
+    free one, a complete add of -B, then tc.jacobian_to_affine."""
+    tx, ty, tinf = table.x, table.y, table.inf
+    F = tc.ops(curve)
     n = scalars_std.shape[0]
-    dev = scalars_std.device
     digits = pp.digits(scalars_std, WINDOW_C)           # (W, n)
-    B_host, (bx, by) = blind
-    tail = tc.coord_tail(curve)
-    z = torch.zeros((n,) + tail, dtype=torch.int32, device=dev)
-    one = tc.ops(curve).one_like(z).to(torch.int32)
+    bx, by = blind
+    z = torch.zeros((n,) + tc.coord_tail(curve), dtype=torch.int64,
+                    device=scalars_std.device)
+    one = F.one_like(z)
 
     def entry(w):
         d = digits[w]
         return tx[w][d], ty[w][d], tinf[w][d]
 
-    acc = pc.mixed_add(curve, (z, one, z), *entry(0))
-    finite = torch.zeros(n, dtype=torch.bool, device=dev)
-    acc = pc.mixed_add(curve, acc, bx.expand(z.shape).contiguous(),
-                       by.expand(z.shape).contiguous(), finite)
+    acc = tc.point_mixed_add(F, (z, one, z), *entry(0))
+    acc = tc.point_mixed_add(F, acc, bx.expand(z.shape), by.expand(z.shape),
+                             torch.zeros(n, dtype=torch.bool,
+                                         device=z.device))
     for w in range(1, N_WINDOWS):
-        acc = pc.mixed_add_noexc(curve, acc, *entry(w))
-    neg = HC.g1_neg(B_host) if curve == "g1" else HC.g2_neg(B_host)
-    conv = tc.g1_affine_to_device if curve == "g1" else tc.g2_affine_to_device
-    nx, ny, _ = conv([neg])
-    negB = (tf.to_tensor(nx, dev).expand(z.shape).contiguous(),
-            tf.to_tensor(ny, dev).expand(z.shape).contiguous(), one)
-    return pc.add(curve, acc, negB)
+        acc = tc.point_mixed_add_noexc(F, acc, *entry(w))
+    neg_b = (bx.expand(z.shape), tf.neg(tf.FQ, by).expand(z.shape), one)
+    return tc.jacobian_to_affine(curve, tc.point_add(F, acc, neg_b))
 
 
-def jacobian_to_affine_host(curve: str, P) -> list:
+def fixed_base_exp(curve: str, table, scalars_std, blind):
+    """scalars_i * base for (n, 16) standard-form scalars as the proving key
+    stores points: affine (x, y) Montgomery int32 tensors ((n, 16) G1, (n,
+    2, 16) G2) and a bool infinity mask (x = y = 0 there). table from
+    window_table; blind = (Bx, By), the Montgomery tensors of
+    pp.make_blind, B a secret random group element that keeps the
+    accumulator off the exceptional cases: it can be infinity only before B
+    is in, and from then on acc = B + partial sum is infinity or +-(next
+    table point) only if B is, with probability about n*W/r. The kernel
+    (csrc/fixed_base.cu) runs the whole ladder and the normalisation in one
+    launch; the plain version for CPU tensors."""
+    bx, by = blind
+    if kn.on_cpu(table.packed, scalars_std, bx, by):
+        return fixed_base_exp_plain(curve, table, scalars_std, blind)
+    n = scalars_std.shape[0]
+    if scalars_std.shape != (n, tf.N) or table.x.shape[:2] != (
+            N_WINDOWS, 1 << WINDOW_C):
+        raise ValueError(f"fixed_base_exp: bad shapes scalars "
+                         f"{tuple(scalars_std.shape)}, table "
+                         f"{tuple(table.x.shape)}")
+    sc = scalars_std.to(torch.int32).contiguous()
+    bx, by = bx.to(torch.int32).contiguous(), by.to(torch.int32).contiguous()
+    kn.check_cuda("fixed_base_exp", table.packed, table.flags, sc, bx, by)
+    kn.check_aligned("fixed_base_exp", table.packed, sc)
+    shape = (n,) + tc.coord_tail(curve)
+    x = torch.empty(shape, dtype=torch.int32, device=sc.device)
+    y = torch.empty_like(x)
+    inf = torch.empty(n, dtype=torch.uint8, device=sc.device)
+    kn.K["fixed_base_exp"](kn.CURVE_ID[curve], x, y, inf, table.packed,
+                           table.flags, sc, bx, by, n)
+    return x, y, inf.view(torch.bool)
+
+
+def _host_points(curve: str, pts) -> list:
+    """Affine Montgomery arrays -> the host affine ints of io's keys."""
+    x, y, inf = (np.asarray(a) for a in pts)
+    flags = [int(f) for f in inf]
     if curve == "g1":
-        return tc.g1_jacobian_to_host(P)
-    return tc.g2_jacobian_to_host(P)
+        return list(zip(tf.from_mont_host(tf.FQ, x),
+                        tf.from_mont_host(tf.FQ, y), flags))
+    x0, x1 = (tf.from_mont_host(tf.FQ, x[:, k]) for k in range(2))
+    y0, y1 = (tf.from_mont_host(tf.FQ, y[:, k]) for k in range(2))
+    return list(zip(zip(x0, x1), zip(y0, y1), flags))
 
 
 # ---------------------------------------------------------------------------
 # Generator (generator.py:211-321)
 # ---------------------------------------------------------------------------
 
-def generate(pb: Protoboard, device="cuda", rng=None,
-             chunk: int = 1 << 18):
-    """Trusted setup over a synthesised circuit (this package's Protoboard
-    or any object with its constraints, primary_input_size and
-    num_variables), exponentiations on `device`. Returns (io.ProvingKey, io.VerificationKey) with host affine
-    points. rng() draws the toxic waste (default: `secrets`); the
-    exponentiation blinds always come from `secrets` and do not change the
-    keys."""
-    rnd = rng or (lambda: secrets.randbelow(R_MOD - 1) + 1)
+def _timed(timings, key, t0):
+    if timings is not None:
+        timings[key] = timings.get(key, 0.0) + time.perf_counter() - t0
+    return time.perf_counter()
+
+
+def _keygen(pb, device, rnd, timings=None) -> dict:
+    """The trusted setup's parts: sizes, the COO constraint lists (after
+    the A/B swap), the group constants as host affine ints, and every query
+    as affine Montgomery numpy arrays (uint32 limbs, bool mask). timings,
+    if given, gains seconds by phase: qap (COO lists, QAP instance at t,
+    scalar vectors), tables (window tables, blinds, group constants,
+    pairing), exp (scalar limbs, their upload, the fixed-base
+    exponentiations and the copy back)."""
     device = torch.device(device)
+    t0 = time.perf_counter()
     ncons = len(pb.constraints)
     num_inputs = pb.primary_input_size
     num_vars = pb.num_variables
@@ -233,78 +295,133 @@ def generate(pb: Protoboard, device="cuda", rng=None,
            for i in range(num_inputs + 1, num_vars + 1)]
     H_s = [Ht[i] * Zt % R_MOD * delta_inv % R_MOD
            for i in range(domain.m - 1)]
+    # B query is sparse over the nonzero Bt entries
+    b_nonzero = [i for i, v in enumerate(Bt) if v]
+    b_scalars = [Bt[i] for i in b_nonzero]
+    t0 = _timed(timings, "qap", t0)
 
     g1 = HC.g1_generator()
     g2 = HC.g2_generator()
     tables = {"g1": window_table("g1", g1, device),
               "g2": window_table("g2", g2, device)}
-    blinds = {"g1": pp.make_blind("g1", device),
-              "g2": pp.make_blind("g2", device)}
-
-    def exp(curve, scalars: List[int]) -> list:
-        out = []
-        for off in range(0, len(scalars), chunk):
-            part = tf.to_tensor(tf.ints_to_limbs(scalars[off:off + chunk]),
-                                device)
-            out.extend(jacobian_to_affine_host(
-                curve, fixed_base_exp(curve, tables[curve], part,
-                                      blinds[curve])))
-        return out
-
-    A_query = exp("g1", At)
-    H_query = exp("g1", H_s)
-    L_query = exp("g1", L_s)
-    gamma_ABC_rest_pts = exp("g1", gamma_ABC_s[1:])
-    gamma_ABC_first = HC.g1_mul(g1, gamma_ABC_s[0])
-
-    # B query is sparse over the nonzero Bt entries
-    b_nonzero = [i for i, v in enumerate(Bt) if v]
-    b_scalars = [Bt[i] for i in b_nonzero]
-    B_g2 = exp("g2", b_scalars)
-    B_g1 = exp("g1", b_scalars)
-
+    blinds = {"g1": pp.make_blind("g1", device)[1],
+              "g2": pp.make_blind("g2", device)[1]}
     alpha_g1 = HC.g1_mul(g1, alpha)
-    beta_g1 = HC.g1_mul(g1, beta)
     beta_g2 = HC.g2_mul(g2, beta)
-    delta_g1 = HC.g1_mul(g1, delta)
-    delta_g2 = HC.g2_mul(g2, delta)
-    gamma_g2 = HC.g2_mul(g2, gamma)
-    alpha_beta = PR.pairing(alpha_g1, beta_g2)
+    out = dict(
+        num_inputs=num_inputs, num_vars=num_vars, ncons=ncons,
+        domain=domain, coo=coo, b_nonzero=b_nonzero,
+        alpha_g1=alpha_g1, beta_g1=HC.g1_mul(g1, beta), beta_g2=beta_g2,
+        delta_g1=HC.g1_mul(g1, delta), delta_g2=HC.g2_mul(g2, delta),
+        gamma_g2=HC.g2_mul(g2, gamma),
+        alpha_beta=PR.pairing(alpha_g1, beta_g2),
+        gamma_ABC_first=HC.g1_mul(g1, gamma_ABC_s[0]))
+    t0 = _timed(timings, "tables", t0)
 
+    def exp(curve, scalars: List[int]):
+        sc = tf.to_tensor(tf.ints_to_limbs(scalars), device)
+        x, y, inf = (t.cpu().numpy() for t in fixed_base_exp(
+            curve, tables[curve], sc, blinds[curve]))
+        return x.view(np.uint32), y.view(np.uint32), inf
+
+    out.update(A=exp("g1", At), H=exp("g1", H_s), L=exp("g1", L_s),
+               gamma_ABC_rest=exp("g1", gamma_ABC_s[1:]),
+               B2=exp("g2", b_scalars), B1=exp("g1", b_scalars))
+    _timed(timings, "exp", t0)
+    return out
+
+
+def _verification_key(kg) -> io.VerificationKey:
+    return io.VerificationKey(
+        alpha_g1_beta_g2=kg["alpha_beta"], gamma_g2=kg["gamma_g2"],
+        delta_g2=kg["delta_g2"], gamma_ABC_first=kg["gamma_ABC_first"],
+        gamma_ABC_rest=list(enumerate(_host_points("g1",
+                                                   kg["gamma_ABC_rest"]))),
+        gamma_ABC_domain=kg["num_inputs"])
+
+
+def generate(pb: Protoboard, device="cuda", rng=None):
+    """Trusted setup over a synthesised circuit (this package's Protoboard
+    or any object with its constraints, primary_input_size and
+    num_variables), exponentiations on `device`, one launch a query. Returns
+    (io.ProvingKey, io.VerificationKey) with host affine points. rng() draws
+    the toxic waste (default: `secrets`); the exponentiation blinds always
+    come from `secrets` and do not change the keys."""
+    rnd = rng or (lambda: secrets.randbelow(R_MOD - 1) + 1)
+    kg = _keygen(pb, device, rnd)
     cs = io.ConstraintSystem(
-        num_inputs, num_vars - num_inputs, _rebuild_constraints(coo, ncons))
+        kg["num_inputs"], kg["num_vars"] - kg["num_inputs"],
+        _rebuild_constraints(kg["coo"], kg["ncons"]))
     pk = io.ProvingKey(
-        alpha_g1=alpha_g1, beta_g1=beta_g1, beta_g2=beta_g2,
-        delta_g1=delta_g1, delta_g2=delta_g2,
-        A_query=A_query,
-        B_domain=num_vars + 1, B_indices=b_nonzero,
-        B_g2=B_g2, B_g1=B_g1,
-        H_query=H_query, L_query=L_query, cs=cs)
-    vk = io.VerificationKey(
-        alpha_g1_beta_g2=alpha_beta, gamma_g2=gamma_g2, delta_g2=delta_g2,
-        gamma_ABC_first=gamma_ABC_first,
-        gamma_ABC_rest=list(enumerate(gamma_ABC_rest_pts)),
-        gamma_ABC_domain=num_inputs)
-    return pk, vk
+        alpha_g1=kg["alpha_g1"], beta_g1=kg["beta_g1"],
+        beta_g2=kg["beta_g2"], delta_g1=kg["delta_g1"],
+        delta_g2=kg["delta_g2"],
+        A_query=_host_points("g1", kg["A"]),
+        B_domain=kg["num_vars"] + 1, B_indices=kg["b_nonzero"],
+        B_g2=_host_points("g2", kg["B2"]), B_g1=_host_points("g1", kg["B1"]),
+        H_query=_host_points("g1", kg["H"]),
+        L_query=_host_points("g1", kg["L"]), cs=cs)
+    return pk, _verification_key(kg)
+
+
+def _coo_arrays(coo, device) -> dict:
+    """The DevicePK's COO fields (keys._cs_to_coo's arrays) from keygen's
+    constraint lists, which already run constraint by constraint, terms in
+    as_dict order: rows and variables int32, the coefficients reduced mod r
+    and put in Montgomery form by one mul_elementwise by the R^2 row on
+    `device`."""
+    coeffs = [c % R_MOD for k in "abc" for c in coo[k][2]]
+    std = tf.to_tensor(tf.ints_to_limbs(coeffs), device)
+    mont = pntt.mul_elementwise(std, tf.to_tensor(tf.FR.r2_limbs[None],
+                                                  device))
+    mont = mont.cpu().numpy().view(np.uint32)
+    out, off = {}, 0
+    for k in "abc":
+        rows, vars_, cs = coo[k]
+        out[f"{k}_row"] = np.asarray(rows, np.int32)
+        out[f"{k}_var"] = np.asarray(vars_, np.int32)
+        out[f"{k}_coeff"] = mont[off:off + len(cs)]
+        off += len(cs)
+    return out
 
 
 def generate_cached(pb: Protoboard, name: str, seed: int, cache_dir: str,
-                    device="cuda"):
+                    device="cuda", timings=None):
     """Keys for circuit `name` with toxic waste from random.Random(seed),
     cached in cache_dir as the v1 npz DevicePK plus the libsnark-format vk
     (<name>_s<seed>.v1.npz, <name>_s<seed>_vk.txt). Generates and writes
-    them on a miss. Returns (DevicePK, VerificationKey, generated)."""
+    them on a miss: the DevicePK straight from the kernel's affine limbs
+    and keygen's COO lists, no point or coefficient through a Python-int
+    conversion. Returns (DevicePK, VerificationKey, generated). timings, if
+    given, gains seconds by phase (_keygen's, then build: coefficients and
+    DevicePK; write: npz and vk written and read back)."""
     base = os.path.join(cache_dir, f"{name}_s{seed}")
     npz = f"{base}.v{K.CACHE_VERSION}.npz"
     vk_path = f"{base}_vk.txt"
     generated = not (os.path.exists(npz) and os.path.exists(vk_path))
     if generated:
         toxic = random.Random(seed)
-        pk, vk = generate(pb, device, rng=lambda: toxic.randrange(1, R_MOD))
+        kg = _keygen(pb, device, lambda: toxic.randrange(1, R_MOD), timings)
+        t0 = time.perf_counter()
+        dpk = K.DevicePK(
+            primary_input_size=kg["num_inputs"],
+            aux_input_size=kg["num_vars"] - kg["num_inputs"],
+            num_constraints=kg["ncons"], domain_size=kg["domain"].m,
+            alpha_g1=kg["alpha_g1"], beta_g1=kg["beta_g1"],
+            beta_g2=kg["beta_g2"], delta_g1=kg["delta_g1"],
+            delta_g2=kg["delta_g2"],
+            A=kg["A"], B_idx=np.asarray(kg["b_nonzero"], np.int32),
+            B2=kg["B2"], B1=kg["B1"], H=kg["H"], L=kg["L"],
+            **_coo_arrays(kg["coo"], device))
+        vk = _verification_key(kg)
+        t0 = _timed(timings, "build", t0)
         os.makedirs(cache_dir, exist_ok=True)
-        K.save_device_pk(K.build_device_pk(pk), npz)
+        K.save_device_pk(dpk, npz)
         io.write_verification_key(vk_path, vk)
-    return K.load_device_pk(npz), io.load_verification_key(vk_path), generated
+    out = K.load_device_pk(npz), io.load_verification_key(vk_path), generated
+    if generated:
+        _timed(timings, "write", t0)
+    return out
 
 
 def _rebuild_constraints(coo, ncons):

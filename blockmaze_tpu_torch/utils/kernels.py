@@ -60,6 +60,7 @@ SIGNATURES = {
     "bm_msm_triangle": [_I, _I, _I] + [_P] * 3 + [_I, _I, _I] + [_P] * 10
                        + [_P],
     "bm_msm_fold": [_I, _P, _P, _P, _I, _I, _P, _P, _P, _P],
+    "bm_fixed_base_exp": [_I] + [_P] * 8 + [_LL, _P],
 }
 
 
@@ -260,6 +261,11 @@ K = {
     "mixed_add_noexc": Kernel("mixed_add_noexc", "bm_point_mixed_add",
                               "blockmaze_tpu_torch/csrc/pcurve.cu",
                               "blockmaze_tpu/curves/pcurve.py:115"),
+    # keygen's whole window ladder (K7 and K8 in that role) and the affine
+    # normalisation, one launch per query
+    "fixed_base_exp": Kernel("fixed_base_exp", "bm_fixed_base_exp",
+                             "blockmaze_tpu_torch/csrc/fixed_base.cu",
+                             "blockmaze_tpu/curves/pcurve.py:102,115"),
 }
 
 

@@ -13,8 +13,12 @@ Phases, each timed; any failure raises and the script exits nonzero:
      with the coset, and inverse with its factors; step_pre and step_post
      at mint's step domain (2^17 + 2^16), with and without their coset
      factors; qap_combine at 196,608 rows; mul_elementwise at 2^16 (and in
-     phase 3 at the mint witness); the point kernels at keygen's chunk
-     (2^18 G1, 2^17 G2 lanes); the MSM kernels (msm_round, msm_combine,
+     phase 3 at the mint witness); the point kernels add, double,
+     mixed_add and mixed_add_noexc at 2^18 G1 / 2^17 G2 lanes (on no
+     path since fixed_base_exp took their keygen role); fixed_base_exp
+     (keygen's whole window ladder and affine normalisation) on 2^18 G1
+     and 2^17 G2 scalars with edge scalars (0, 1, r-1, powers of two,
+     bytes of 0 and 255); the MSM kernels (msm_round, msm_combine,
      msm_triangle, msm_fold) at the mint MSMs' shape (2^18 G1 and 2^17 G2
      points, c = 12, 22 windows) on real blinded data cut as msm cuts its
      live stream, with runs across many lanes and combine blocks; and
@@ -54,7 +58,14 @@ Phases, each timed; any failure raises and the script exits nonzero:
 Each circuit's launch counts are reset just before its keygen and read
 just after it, and reset again just before its three proofs and read just
 after them; phase 5 reads them around each transaction and phase 6 around
-each batch: each path must launch each of its kernels. The prove path by
+each batch: each path must launch each of its kernels. The keygen path
+(KEYGEN_PATH): one fixed_base_exp per query (six) and one
+mul_elementwise (the coefficients' Montgomery form), never a batched
+point kernel (add, double, mixed adds). Each keygen's summary splits its
+seconds by phase and prints a sha256 digest of every DevicePK array and
+of the vk file; their digest over all must equal KEY_SHA256 (the keys of
+SEED that keygen made before fixed_base_exp, with the batched point
+kernels), loaded keys included. The prove path by
 domain kind (PROVE_PATH): never the batched point kernels (add, double,
 mixed adds), which the bucket reduction replaced there, nor the
 single-stage butterfly, which fft replaced; on a step domain at most 28
@@ -62,8 +73,9 @@ fft launches per proof (two passes for each of 14 FFTs) and at most 12 of
 qap_matvec, step_pre, step_post and qap_combine; on a basic domain at most
 14 fft launches (7 FFTs of two passes, their factors inside), one
 qap_matvec, one qap_combine, no step_pre or step_post; on both at most one
-mul_elementwise (the witness's Montgomery form). double (K4) is on neither
-path; phase 1 holds it against its plain version. A kernel's launches in
+mul_elementwise (the witness's Montgomery form). add, double,
+mixed_add, mixed_add_noexc and butterfly are on neither path; phase 1
+holds them against their plain versions. A kernel's launches in
 the kernel table are its sum over both paths of every circuit. Each
 circuit prints a summary line (sizes, MSM shapes, keygen, Prover and
 proof times). The second-to-last line is the kernel table as JSON; the
@@ -78,14 +90,23 @@ the reduction factors. 16.7 T/s = 132 SMs x 64 IMAD per clock x 1.98 GHz,
 half the float32 FMA rate behind the 67 TFLOP/s of the card's data sheet.
 Products are counted per point operation on the path each input takes
 (G1/G2 Fq products: add 16/43, double 7/16, mixed add 11/29; msm_round one
-mixed add per live item), per butterfly for fft (k * 2^(k-1)) plus one
-per element and factor, per term for qap_matvec, and per element and
-step for step_pre, step_post and qap_combine.
+mixed add per live item; fixed_base_exp what s * G needs from the
+window table: a mixed add for each nonzero digit of a scalar after its
+first (the blind's two adds left out), then for each nonzero scalar the
+affine normalisation at the cost of one batch inversion (Montgomery's
+trick) over the query: 3 products per point (G2: 3 Fq2 products, 9 Fq)
+and 4 (G2: 11) for x Z^-2 and y Z^-3, plus one Fermat inversion per query
+of 253 squarings and 109 multiplies (G2: of the norm, 4 Fq products
+around it)),
+per butterfly for fft (k * 2^(k-1)) plus one per element and
+factor, per term for qap_matvec, and per element and step for step_pre,
+step_post and qap_combine.
 """
 
 from __future__ import annotations
 
 import functools
+import hashlib
 import json
 import os
 import random
@@ -97,22 +118,43 @@ import numpy as np
 import torch
 
 SEED = 20261016
+# key_digests(...)["all"] of each circuit's keys for SEED, as keygen made
+# them with the batched point kernels (add, mixed_add, mixed_add_noexc)
+# and the host affine conversion before fixed_base_exp replaced both:
+# keygen must reproduce them bit for bit
+KEY_SHA256 = {
+    "mint": "82953cebaf04d3bcaee51f76b3b2e1b1d64c6f92347b261ff541780883a4cca4",
+    "send": "79e6c64a4b371e096c411953ec9dfbc5d9b6850dce727cabbcc9c5741bd16a81",
+    "redeem":
+        "55e532753cd6b1758cd97d7e90938e7efb58ab68ab485a18469c21521a8fde32",
+    "deposit":
+        "6ed4b29c20b2cf4e66986f9a28b8b7571ecd37352bd25af8df09eb8ee6a3ccec",
+    "deposit20":
+        "9432c8f5689f2c9761eb96065c86e6088cd1612426854878941a0b90c8d2f8a2",
+}
 MEM_RATE = 3.35e12     # bytes/s
 IMAD_RATE = 132 * 64 * 1.98e9
 IMAD_PER_PRODUCT = 264
-PRODUCTS = {"g1": {"add": 16, "dbl": 7, "madd": 11},
-            "g2": {"add": 43, "dbl": 16, "madd": 29}}
+PRODUCTS = {"g1": {"add": 16, "dbl": 7, "madd": 11, "affine": 3 + 4,
+                   "inv": 362},
+            "g2": {"add": 43, "dbl": 16, "madd": 29, "affine": 9 + 11,
+                   "inv": 362 + 4}}
 ORDER = ["fft", "butterfly", "mul_elementwise", "qap_matvec", "step_pre",
          "step_post", "qap_combine", "add", "double", "msm_round",
          "msm_combine", "msm_triangle", "msm_fold", "mixed_add",
-         "mixed_add_noexc"]
-KEYGEN_PATH = ["add", "mixed_add", "mixed_add_noexc"]
+         "mixed_add_noexc", "fixed_base_exp"]
+# keygen: one fixed_base_exp per query (A, H, L, the vk's inputs, B in G2
+# and G1) and the coefficients' Montgomery form in one mul_elementwise;
+# the batched point kernels it ran before stay off this path too
+KEYGEN_PATH = ["fixed_base_exp", "mul_elementwise"]
+KEYGEN_LAUNCHES = {"fixed_base_exp": 6, "mul_elementwise": 1}
+POINT_KERNELS = ["add", "double", "mixed_add", "mixed_add_noexc"]
 QAP_KERNELS = ["qap_matvec", "step_pre", "step_post", "qap_combine"]
 MSM_KERNELS = ["msm_round", "msm_combine", "msm_triangle", "msm_fold"]
 # the batched point kernels (the bucket reduction replaced them on the prove
-# path) and the single-stage butterfly (fft replaced it)
-OFF_PROVE_PATH = ["add", "double", "mixed_add", "mixed_add_noexc",
-                  "butterfly"]
+# path, fixed_base_exp on the keygen path), keygen's own kernel and the
+# single-stage butterfly (fft replaced it)
+OFF_PROVE_PATH = POINT_KERNELS + ["fixed_base_exp", "butterfly"]
 # The prove path by domain kind: the kernels each proof launches, those it
 # must not launch, and the most launches per proof of each group of
 # kernels. A step domain's 7 FFTs each run a big and a small part (two
@@ -370,8 +412,9 @@ def phase1(dev, rng, report):
         lambda: pntt.butterfly_plain(x, tw, span), reps=20),
         m // 2, 2 * nbytes(x) + nbytes(tw))
 
-    # K3, K4, K7, K8 at keygen's chunk of 2^18 G1 lanes and at 2^17 G2
-    # lanes (the mint's B query fits one chunk), with edge lanes
+    # K3, K4, K7, K8 (on no path: fixed_base_exp took their keygen role)
+    # at 2^18 G1 and 2^17 G2 lanes, the shapes of the keygen chunk they
+    # ran, with edge lanes
     for curve, n in (("g1", 1 << 18), ("g2", 1 << 17)):
         F = tc.ops(curve)
         pr = PRODUCTS[curve]
@@ -413,10 +456,58 @@ def phase1(dev, rng, report):
             lambda: tc.point_mixed_add_noexc(F, Pm, Qa[0], Qa[1], qinf)),
             int((~qinf).sum()) * pr["madd"], madd_bytes)
 
+    fixed_base_parity(dev, rng, check, record)
+
     # the MSM kernels at the mint MSMs' shape: n = nA = nH = nL in G1,
     # n = nB in G2
     for curve, n in (("g1", 1 << 18), ("g2", 1 << 17)):
         msm_parity(curve, n, dev, rng, check, record)
+
+
+def edge_scalars(n, rng, dev):
+    """(n, 16) int32 standard-form scalars: 0, 1, r-1, r-2, powers of two,
+    scalars whose bytes are 0 or 255 in some windows, then random ones
+    below r."""
+    from blockmaze_tpu_torch.fields import tfield as tf
+    from blockmaze_tpu_torch.fields.constants import R_MOD
+    edge = [0, 1, R_MOD - 1, R_MOD - 2, 2, 1 << 8, 1 << 100, 1 << 252, 255,
+            0xff << 240, (1 << 248) - 1, int("ff00" * 16, 16) % R_MOD,
+            int("00ff" * 16, 16) % R_MOD, 255 << 8, 0]
+    s = rand_field(rng, (n,), dev)
+    s[:len(edge)] = tf.to_tensor(tf.ints_to_limbs(edge), dev)
+    return s
+
+
+def fixed_base_parity(dev, rng, check, record,
+                      sizes=(("g1", 1 << 18), ("g2", 1 << 17))):
+    """fixed_base_exp (one launch: the whole blinded window ladder and the
+    affine normalisation) against its plain version at keygen's shapes:
+    2^18 G1 and 2^17 G2 scalars (mint's A/H/L and B queries are 151k-197k
+    and 43k), edge scalars first. Products counted on these scalars as
+    s * G needs them: a mixed add for each nonzero digit after a scalar's
+    first, the batch-inversion normalisation of each nonzero scalar's
+    point and one inversion."""
+    from blockmaze_tpu_torch.curves import host_curve as HC
+    from blockmaze_tpu_torch.groth16 import generator as gen
+    from blockmaze_tpu_torch.msm import pippenger as pp
+    for curve, n in sizes:
+        base = HC.g1_generator() if curve == "g1" else HC.g2_generator()
+        table = gen.window_table(curve, base, dev)
+        blind = pp.make_blind(curve, dev)[1]
+        sc = edge_scalars(n, rng, dev)
+        res = check(
+            "fixed_base_exp", f"{curve} n={n}",
+            lambda: gen.fixed_base_exp(curve, table, sc, blind),
+            lambda: gen.fixed_base_exp_plain(curve, table, sc, blind),
+            reps=3)
+        pr = PRODUCTS[curve]
+        nz = (pp.digits(sc, gen.WINDOW_C) != 0).sum(0)
+        adds = int((nz - 1).clamp(min=0).sum())
+        products = (adds * pr["madd"] + int((nz > 0).sum()) * pr["affine"]
+                    + pr["inv"])
+        out_bytes = 2 * nbytes(table.x[0, 0]) * n + n
+        moved = nbytes(sc) + nbytes(table.packed, table.flags) + out_bytes
+        record("fixed_base_exp", res, products, moved)
 
 
 def fft_parity(dev, rng, check, record):
@@ -779,20 +870,13 @@ def run_circuit(name, dev):
     log(f"  {name} circuit: {pb.num_variables} variables, "
         f"{len(pb.constraints)} constraints, satisfied "
         f"({summary['synthesis_s']}s)")
-    t0 = time.perf_counter()
     cache = key_cache()
-    kn.reset_counts()
-    dpk, vk, generated = generator.generate_cached(pb, name, SEED, cache,
-                                                   dev)
-    torch.cuda.synchronize()
     path_counts = []
-    summary["keygen_s" if generated else "key_load_s"] = round(
-        time.perf_counter() - t0, 1)
+    dpk, vk, generated, kg = keygen(pb, name, cache, dev)
+    summary.update(kg)
     if generated:
-        path_counts.append(kn.counts())
-        log(f"  keygen (seed {SEED}) + npz/vk cache write and load: "
-            f"{summary['keygen_s']}s")
-        check_launches("keygen path", path_counts[-1], KEYGEN_PATH)
+        path_counts.append(kg["keygen_launches"])
+        check_keygen_counts(kg["keygen_launches"])
     else:
         log(f"  keys loaded from {cache} ({summary['key_load_s']}s); "
             f"keygen path not run")
@@ -842,14 +926,100 @@ def run_circuit(name, dev):
     return prover, primary, aux, path_counts
 
 
+def keygen(pb, name, cache, dev):
+    """generate_cached for circuit `name` into `cache` with the launch
+    counts reset before it; fixed_base_exp's calls timed on the card (CUDA
+    events around each). Returns (dpk, vk, generated, summary fields):
+    keygen_s (or key_load_s), its phases, fixed_base_exp's ms per query,
+    the launches and the key's digests, whose digest over all must be
+    KEY_SHA256[name]."""
+    from blockmaze_tpu_torch.groth16 import generator
+    from blockmaze_tpu_torch.utils import kernels as kn
+
+    exps = []
+    wrapped_exp = generator.fixed_base_exp
+
+    def timed_exp(curve, table, scalars, blind):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = wrapped_exp(curve, table, scalars, blind)
+        end.record()
+        torch.cuda.synchronize()
+        exps.append((curve, scalars.shape[0], start.elapsed_time(end)))
+        return out
+
+    timings = {}
+    generator.fixed_base_exp = timed_exp
+    kn.reset_counts()
+    t0 = time.perf_counter()
+    try:
+        dpk, vk, generated = generator.generate_cached(
+            pb, name, SEED, cache, dev, timings=timings)
+        torch.cuda.synchronize()
+    finally:
+        generator.fixed_base_exp = wrapped_exp
+    dt = round(time.perf_counter() - t0, 3)
+    out = {}
+    if generated:
+        out["keygen_s"] = dt
+        out["keygen_phases"] = {k: round(v, 3) for k, v in timings.items()}
+        out["fixed_base_exp_ms"] = [(c, n, round(ms, 3))
+                                    for c, n, ms in exps]
+        out["keygen_launches"] = {k: v for k, v in kn.counts().items()
+                                  if v}
+        log(f"  keygen (seed {SEED}) + npz/vk cache write and load: {dt}s "
+            f"phases {json.dumps(out['keygen_phases'])}")
+        log(f"  fixed_base_exp (curve, n, ms): "
+            f"{json.dumps(out['fixed_base_exp_ms'])}")
+        log(f"  keygen launches: {json.dumps(out['keygen_launches'])}")
+    else:
+        out["key_load_s"] = dt
+    out["key_sha256"] = key_digests(cache, name)
+    log(f"  key digests: {json.dumps(out['key_sha256'])}")
+    if out["key_sha256"]["all"] != KEY_SHA256[name]:
+        raise AssertionError(f"{name} keys differ from KEY_SHA256: digest "
+                             f"{out['key_sha256']['all']}")
+    log(f"  {name} keys equal to KEY_SHA256's")
+    return dpk, vk, generated, out
+
+
+def check_keygen_counts(counts):
+    """The keygen path: exactly KEYGEN_LAUNCHES, no batched point kernel."""
+    check_launches("keygen path", counts, KEYGEN_PATH, POINT_KERNELS)
+    for k, want in KEYGEN_LAUNCHES.items():
+        if counts.get(k, 0) != want:
+            raise RuntimeError(f"keygen path: {counts.get(k, 0)} launches "
+                               f"of {k}, not {want}")
+
+
+def key_digests(cache, name) -> dict:
+    """sha256 (first 16 hex digits) of every array of the circuit's npz
+    DevicePK (its dtype, shape and bytes) and of the vk file, and one
+    sha256 over all of them ("all")."""
+    base = os.path.join(cache, f"{name}_s{SEED}")
+    out = {}
+    with np.load(f"{base}.v1.npz") as z:
+        for k in sorted(z.files):
+            a = np.ascontiguousarray(z[k])
+            h = hashlib.sha256(f"{a.dtype.str} {a.shape} ".encode())
+            h.update(a.tobytes())
+            out[k] = h.hexdigest()[:16]
+    with open(f"{base}_vk.txt", "rb") as f:
+        out["vk"] = hashlib.sha256(f.read()).hexdigest()[:16]
+    out["all"] = hashlib.sha256(json.dumps(out, sort_keys=True)
+                                .encode()).hexdigest()
+    return out
+
+
 def phase3(dev, report):
     """Mint end to end (run_circuit), then mint's own checks: K2 on the
     witness and qap_matvec on the key's CSR (qap_parity), msm_round on the
     proof's streams, the lane sweep and a profiled proof. Returns the
     paths' launch counts."""
     prover, primary, aux, path_counts = run_circuit("mint", dev)
-    log("  double (K4) runs on neither path; phase 1 holds it against its "
-        "plain version")
+    log("  add, double, mixed_add and mixed_add_noexc run on neither path; "
+        "phase 1 holds them against their plain versions")
     qap_parity(prover, primary, aux, report)
     mint_stream_parity(prover, report)
     lane_sweep(prover)
