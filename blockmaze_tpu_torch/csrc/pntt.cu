@@ -39,6 +39,14 @@
 // its output index (coset^-1 of an inverse coset FFT). Each is an optional
 // (null) pointer; the product order is the JAX pipeline's.
 //
+// A batch of B = 2^b transforms of 2^j elements each, stored one after the
+// other, is the first j stages of one array of 2^(j+b) elements: a pass
+// never pairs elements of different transforms while its stages stay below
+// j, the twiddles of those stages are the length-2^j table's, and the first
+// pass gathers each element through the length-2^j permutation inside its
+// own transform (the row's high bits kept, its low j bits permuted). The
+// sharded 4-step FFT runs its column and row FFTs so (parallel/sntt.py).
+//
 // `butterfly_stage` stays as the one-to-one counterpart of the TPU kernel;
 // the prove path launches `fft`.
 
@@ -64,15 +72,16 @@ __device__ __forceinline__ void tile_put(int4* sm, int tile, int e,
 
 // Stages [s0, s1) of the in-order DIT FFT of 2^k elements, over tiles of
 // 2^tile_log elements and one thread per butterfly (tile / 2 threads).
-// FIRST: `in` is (2^k, 16) in the JAX layout, gathered through perm; else
+// FIRST: `in` is (2^k, 16) in the JAX layout, gathered through the
+// 2^perm_log-entry perm inside each run of 2^perm_log rows; else
 // `in` is the packed (2^k, 8) scratch. LAST: `out` is (2^k, 16) in the JAX
 // layout; else the packed scratch (in place when in == out).
 // pre (FIRST), scale and post (LAST): optional factors, see above.
 template <bool FIRST, bool LAST>
 __global__ void __launch_bounds__(1 << (FFT_TILE_LOG - 1))
     fft_pass_kernel(int32_t* out, const int32_t* in, const int32_t* perm,
-                    const int32_t* tw, int tile_log, int s0, int s1,
-                    const int32_t* pre, const int32_t* scale,
+                    int perm_log, const int32_t* tw, int tile_log, int s0,
+                    int s1, const int32_t* pre, const int32_t* scale,
                     const int32_t* post) {
   extern __shared__ int4 sm[];
   const int ns = s1 - s0;
@@ -94,7 +103,8 @@ __global__ void __launch_bounds__(1 << (FFT_TILE_LOG - 1))
     const long long p = pos(r, cl);
     E v;
     if (FIRST) {
-      const long long src = perm[p];
+      const long long pmask = (1LL << perm_log) - 1;
+      const long long src = (p & ~pmask) | perm[p & pmask];
       v = load_e4(reinterpret_cast<const int4*>(in) + 4 * src, 1);
       if (pre)
         v = mul_e<FrP>(v, load_e4(reinterpret_cast<const int4*>(pre) + 4 * src,
@@ -191,19 +201,22 @@ unsigned blocks_for(long long n) {
 
 }  // namespace
 
-// One pass of the FFT of m = 2^k elements over stages [s0, s1), in tiles
-// of 2^tile_log elements, s1 - s0 <= tile_log <= min(k, 10). a: (m, 16)
-// (first pass) or packed (m, 8) scratch; out: (m, 16) (last pass) or the
-// scratch, all 16-byte aligned; perm: (m,) int32; tw: (m - 1, 16), stage s
-// at row 2^s - 1. pre (read by the first pass), scale (1, 16) and post
-// (read by the last) are (m, 16) or null.
+// One pass over stages [s0, s1) of 2^(k - perm_log) FFTs of 2^perm_log
+// elements each, stored one after the other (one FFT when perm_log = k), in
+// tiles of 2^tile_log elements, s1 - s0 <= tile_log <= min(k, 10), s1 <=
+// perm_log. a: (2^k, 16) (first pass) or packed (2^k, 8) scratch; out:
+// (2^k, 16) (last pass) or the scratch, all 16-byte aligned; perm:
+// (2^perm_log,) int32; tw: (2^perm_log - 1, 16), stage s at row 2^s - 1.
+// pre (read by the first pass), scale (1, 16) and post (read by the last)
+// are (2^k, 16) or null.
 extern "C" int bm_fft_pass(void* out, const void* a, const void* perm,
-                           const void* tw, int k, int tile_log, int s0,
-                           int s1, int first, int last, const void* pre,
-                           const void* scale, const void* post,
-                           void* stream) {
-  if (k < 0 || k > 30 || tile_log > k || tile_log > FFT_TILE_LOG || s0 < 0 ||
-      s1 < s0 || s1 > k || s1 - s0 > tile_log)
+                           const void* tw, int k, int perm_log, int tile_log,
+                           int s0, int s1, int first, int last,
+                           const void* pre, const void* scale,
+                           const void* post, void* stream) {
+  if (k < 0 || k > 30 || perm_log < 0 || perm_log > k || tile_log > k ||
+      tile_log > FFT_TILE_LOG || s0 < 0 || s1 < s0 || s1 > perm_log ||
+      s1 - s0 > tile_log)
     return (int)cudaErrorInvalidValue;
   const int tile = 1 << tile_log;
   const unsigned grid = 1u << (k - tile_log);
@@ -219,16 +232,16 @@ extern "C" int bm_fft_pass(void* out, const void* a, const void* perm,
   auto f2 = (const int32_t*)post;
   if (first && last)
     fft_pass_kernel<true, true><<<grid, threads, smem, s>>>(
-        o, i, p, w, tile_log, s0, s1, f0, f1, f2);
+        o, i, p, perm_log, w, tile_log, s0, s1, f0, f1, f2);
   else if (first)
     fft_pass_kernel<true, false><<<grid, threads, smem, s>>>(
-        o, i, p, w, tile_log, s0, s1, f0, f1, f2);
+        o, i, p, perm_log, w, tile_log, s0, s1, f0, f1, f2);
   else if (last)
     fft_pass_kernel<false, true><<<grid, threads, smem, s>>>(
-        o, i, p, w, tile_log, s0, s1, f0, f1, f2);
+        o, i, p, perm_log, w, tile_log, s0, s1, f0, f1, f2);
   else
     fft_pass_kernel<false, false><<<grid, threads, smem, s>>>(
-        o, i, p, w, tile_log, s0, s1, f0, f1, f2);
+        o, i, p, perm_log, w, tile_log, s0, s1, f0, f1, f2);
   return (int)cudaGetLastError();
 }
 

@@ -194,8 +194,7 @@ class MatrixCSR:
 
 def build_csr(dpk) -> MatrixCSR:
     """The CSR of a DevicePK's (this package's or the JAX package's) COO
-    matrices: a stable sort of each by row, so each row keeps its terms'
-    order."""
+    matrices, A (with its input-consistency rows), B and C stacked."""
     m, ncons = dpk.domain_size, dpk.num_constraints
     n_inp = dpk.primary_input_size
     rows, vars_, coeffs = [], [], []
@@ -209,19 +208,32 @@ def build_csr(dpk) -> MatrixCSR:
             v = np.concatenate([v, extra])
             c = np.concatenate([c, np.broadcast_to(tf.FR.one_mont,
                                                    (n_inp + 1, tf.N))])
-        order = np.argsort(r, kind="stable")
-        rows.append(r[order] + k * m)
-        vars_.append(v[order])
-        coeffs.append(c[order])
-    row = np.concatenate(rows)
-    counts = np.bincount(row, minlength=3 * m)
-    ptr = np.zeros(3 * m + 1, np.int64)
+        rows.append(r + k * m)
+        vars_.append(v)
+        coeffs.append(c)
+    return coo_to_csr(np.concatenate(rows), np.concatenate(vars_),
+                      np.concatenate(coeffs), 3 * m)
+
+
+def coo_to_csr(row, var, coeff, nrows: int) -> MatrixCSR:
+    """The CSR (numpy) of a COO matrix of nrows rows: a stable sort by row,
+    so each row keeps its terms' order."""
+    row = np.asarray(row, np.int64)
+    order = np.argsort(row, kind="stable")
+    counts = np.bincount(row, minlength=nrows)
+    ptr = np.zeros(nrows + 1, np.int64)
     np.cumsum(counts, out=ptr[1:])
     return MatrixCSR(ptr=ptr.astype(np.int32),
-                     var=np.concatenate(vars_).astype(np.int32),
-                     coeff=np.concatenate(coeffs),
+                     var=np.asarray(var)[order].astype(np.int32),
+                     coeff=np.asarray(coeff, np.uint32)[order],
                      long_rows=np.flatnonzero(counts > LONG_ROW)
                      .astype(np.int32))
+
+
+def csr_to(csr: MatrixCSR, device) -> MatrixCSR:
+    """A numpy MatrixCSR as int32 tensors on `device`."""
+    return MatrixCSR(*(tf.to_tensor(getattr(csr, f.name), device)
+                       for f in dataclasses.fields(csr)))
 
 
 @dataclasses.dataclass
@@ -245,9 +257,7 @@ def to_device(dpk, device) -> DeviceKey:
         return (tf.to_tensor(x, device), tf.to_tensor(y, device),
                 torch.from_numpy(np.asarray(inf, bool)).to(device))
 
-    csr = build_csr(dpk)
-    csr = MatrixCSR(*(tf.to_tensor(getattr(csr, f.name), device)
-                      for f in dataclasses.fields(csr)))
+    csr = csr_to(build_csr(dpk), device)
     B_idx = torch.from_numpy(np.asarray(dpk.B_idx, np.int64)).to(device)
     return DeviceKey(A=pts(dpk.A), B_idx=B_idx, B2=pts(dpk.B2),
                      B1=pts(dpk.B1), H=pts(dpk.H), L=pts(dpk.L), csr=csr)

@@ -17,6 +17,15 @@ mul_elementwise by R^2); the QAP returns H in standard form:
 r and s are drawn per proof from `secrets` unless given; each proof (each
 batch, in prove_batch) also draws fresh MSM blinds (msm/pippenger.py), so
 the proof for a given (r, s) is the same whatever the blinds.
+
+With a mesh (parallel/mesh.py), as the JAX package's Prover(mesh=...):
+every MSM's points lie in one block per shard from init on and the MSMs
+run through parallel.mesh.sharded_msm; the QAP runs through
+parallel.sqap.sharded_qap_h (the key's CSR cut by rows, every FFT in four
+steps over the mesh) when the domain splits evenly over the mesh
+(sqap.can_shard_domain), else on the lead device as on one card. The
+witness, the blinds, the QAP's elementwise passes and the results live on
+the lead device. A proof equals the single-card proof at the same (r, s).
 """
 
 from __future__ import annotations
@@ -37,6 +46,8 @@ from ..fields import tfield as tf
 from ..fields.constants import R_MOD
 from ..msm import pippenger as pp
 from ..ntt import pntt, tntt
+from ..parallel import mesh as pm
+from ..parallel import sntt, sqap
 from ..serialization.libsnark_io import Proof
 from . import keys as K
 from . import qap
@@ -74,32 +85,48 @@ class Prover:
     tensor lives: the card by default, where the kernels run; "cpu" runs
     their plain versions. lanes is the most MSM accumulation lanes
     (pippenger.lane_cut cuts fewer for a sparse stream), window the
-    Pippenger window c."""
+    Pippenger window c. mesh (parallel.mesh.Mesh) shards the proof over
+    its devices, its first the lead device (device is then unused)."""
 
     def __init__(self, dpk, device="cuda", lanes: Optional[int] = None,
-                 window: Optional[int] = None):
-        self.device = torch.device(device)
+                 window: Optional[int] = None, mesh=None):
+        self.mesh = mesh
+        self.device = mesh.lead if mesh is not None else torch.device(device)
         self.dpk = dpk
         self.domain = dpk.domain
         cuda = self.device.type == "cuda"
         self.lanes = lanes or (pp.MAX_LANES if cuda else 64)
         self.window = window or pp.default_window(dpk.num_variables)
+        n_dev = mesh.size if mesh is not None else 1
+
+        def pad(n):
+            # a mesh cuts every MSM into equal blocks (powers of two)
+            return max(_next_pow2(n), n_dev)
+
         dk = K.to_device(dpk, self.device)
         m = self.domain.m
-        self.nA = _next_pow2(dpk.num_variables + 1)
-        self.A = _pad_points(dk.A, self.nA)
-        self.nB = _next_pow2(len(dpk.B_idx))
-        self.B2 = _pad_points(dk.B2, self.nB)
-        self.B1 = _pad_points(dk.B1, self.nB)
-        self.nH = _next_pow2(m - 1)
-        self.H = _pad_points(tuple(v[:m - 1] for v in dk.H), self.nH)
-        self.nL = _next_pow2(len(dpk.L[2]))
-        self.L = _pad_points(dk.L, self.nL)
+        self.nA = pad(dpk.num_variables + 1)
+        self.A = self._place(_pad_points(dk.A, self.nA))
+        self.nB = pad(len(dpk.B_idx))
+        self.B2 = self._place(_pad_points(dk.B2, self.nB))
+        self.B1 = self._place(_pad_points(dk.B1, self.nB))
+        self.nH = pad(m - 1)
+        self.H = self._place(_pad_points(tuple(v[:m - 1] for v in dk.H),
+                                         self.nH))
+        self.nL = pad(len(dpk.L[2]))
+        self.L = self._place(_pad_points(dk.L, self.nL))
         self.B_idx = dk.B_idx
         self.csr = dk.csr
-        self.tables = tntt.tables_to({**tntt.qap_tables(self.domain),
-                                      **tntt.std_tables(self.domain)},
-                                     self.device)
+        self.sharded_qap = mesh is not None and sqap.can_shard_domain(
+            self.domain, n_dev)
+        if self.sharded_qap:
+            self.csr_shards = sqap.shard_csr(mesh, dk.csr)
+            self.tables = sntt.tables_to(sntt.sqap_tables(self.domain,
+                                                          n_dev), mesh)
+        else:
+            self.tables = tntt.tables_to({**tntt.qap_tables(self.domain),
+                                          **tntt.std_tables(self.domain)},
+                                         self.device)
         # x * R^2 * R^-1 = x*R mod r for any x < 2^256 (R^2 mod r is
         # canonical, the operand the product needs)
         self._r2 = tf.to_tensor(FR.r2_limbs[None], self.device)
@@ -109,9 +136,15 @@ class Prover:
         self.timings = {}
         self.msm_inputs = {}
 
+    def _place(self, pts):
+        """An MSM's points: as they are, or one block per shard."""
+        return pts if self.mesh is None else self.mesh.shard_points(pts)
+
     def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        devs = self.mesh.devices if self.mesh is not None else (self.device,)
+        for d in dict.fromkeys(devs):
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
 
     def _lap(self, label, t0):
         self._sync()
@@ -124,8 +157,21 @@ class Prover:
         msm_inputs[name] until the next proof."""
         scalars = _pad_scalars(scalars, n)
         self.msm_inputs[name] = (pts, scalars)
+        if self.mesh is not None:
+            return pm.sharded_msm(self.mesh, curve, pts, scalars,
+                                  self.window, self.lanes, blind=blind)
         return pp.msm(curve, pts, scalars, self.window, self.lanes,
                       blind=blind)
+
+    def _qap(self, wires_mont):
+        """H[0..m-2] in standard form (the H MSM's scalars)."""
+        if self.sharded_qap:
+            H = sqap.sharded_qap_h(self.mesh, self.domain, self.csr_shards,
+                                   wires_mont, self.tables, std=True)
+        else:
+            H = qap.qap_h_arrays(self.domain, self.csr, wires_mont,
+                                 self.tables, std=True)
+        return H[:self.domain.m - 1]
 
     def _check_sizes(self, primary, aux):
         dpk = self.dpk
@@ -164,8 +210,7 @@ class Prover:
         R2, b2 = pp.make_blind("g2", self.device)
         t0 = self._lap("wires", t0)
 
-        H_std = qap.qap_h_arrays(self.domain, self.csr, wires_mont,
-                                 self.tables, std=True)[:self.domain.m - 1]
+        H_std = self._qap(wires_mont)
         t0 = self._lap("qap", t0)
 
         msms = self._msms(wires_std, H_std, b1, b2)
@@ -217,8 +262,7 @@ class Prover:
             self.timings["limbs"] += time.perf_counter() - t
             wires_std = tf.to_tensor(limbs, self.device)
             wires_mont = pntt.mul_elementwise(wires_std, self._r2)
-            H_std = qap.qap_h_arrays(self.domain, self.csr, wires_mont,
-                                     self.tables, std=True)[:self.domain.m - 1]
+            H_std = self._qap(wires_mont)
             msms = _to_numpy(self._msms(wires_std, H_std, b1, b2))
             proofs.append(pool.submit(_combine, self._consts, self.window,
                                       msms, R1, R2, r, s))

@@ -79,7 +79,7 @@ def digits(scalars, c: int):
     return torch.stack(out)
 
 
-def _window_keys(points, scalars, c: int):
+def window_keys(points, scalars, c: int):
     """(keys (W, n) int64 = window * 2^c + digit, live (W, n) bool: digit
     nonzero and point finite, DROP = W * 2^c)."""
     d = digits(scalars, c)
@@ -90,12 +90,22 @@ def _window_keys(points, scalars, c: int):
     return keys, live, W * nb
 
 
-def _sort_live(keys, live):
+def sort_live(keys, live, count=None):
     """The live items as (keys int32, point ids int32) in (window, digit,
-    point) order: a stable partition (nonzero, which reads the live count
-    to the host once) then a stable sort of the live keys alone."""
+    point) order: a stable partition, then a stable sort of the live keys
+    alone. The partition is torch.nonzero, which reads the live count to
+    the host; given that count (an int), it is a scatter of each live
+    item to its rank instead, which does not wait for the device."""
     n = keys.shape[1]
-    idx = torch.nonzero(live.reshape(-1)).squeeze(1)
+    flat = live.reshape(-1)
+    if count is None:
+        idx = torch.nonzero(flat).squeeze(1)
+    else:
+        # dead items all go to the spare slot `count`, which is cut off
+        rank = torch.where(flat, torch.cumsum(flat, 0) - 1, count)
+        idx = torch.empty(count + 1, dtype=torch.int64, device=flat.device)
+        idx.scatter_(0, rank, torch.arange(flat.shape[0], device=flat.device))
+        idx = idx[:count]
     skeys, order = torch.sort(keys.reshape(-1)[idx].to(torch.int32),
                               stable=True)
     return skeys, (idx[order] % n).to(torch.int32)
@@ -104,8 +114,8 @@ def _sort_live(keys, live):
 def live_stream(points, scalars, c: int):
     """The accumulation's input: (keys int32 (live,), point ids int32
     (live,), DROP), every key < DROP."""
-    keys, live, drop = _window_keys(points, scalars, c)
-    return _sort_live(keys, live) + (drop,)
+    keys, live, drop = window_keys(points, scalars, c)
+    return sort_live(keys, live) + (drop,)
 
 
 def stream_keys(points, scalars, c: int):
@@ -113,10 +123,10 @@ def stream_keys(points, scalars, c: int):
     ids int32 (W*n,), DROP). Window-major; each window holds its live items
     in digit order (the live stream's), then its dead items in point order
     under key DROP."""
-    keys, live, drop = _window_keys(points, scalars, c)
+    keys, live, drop = window_keys(points, scalars, c)
     W, n = keys.shape
     dev = keys.device
-    lk, lp = _sort_live(keys, live)
+    lk, lp = sort_live(keys, live)
     nlive = live.sum(1)
     start = torch.cumsum(nlive, 0) - nlive
     w = lk.to(torch.int64) // (1 << c)
@@ -526,9 +536,17 @@ def msm(curve: str, points, scalars, c: int, lanes: int, blind=None):
     coordinate tensors without batch axis; with blind=(Rx, Ry) the result
     is (X, Y, Z, wts) with wts the (W,) int64 per-window counts of R.
     lanes is the most accumulation lanes (lane_cut)."""
+    return msm_stream(curve, points, live_stream(points, scalars, c), c,
+                      lanes, blind)
+
+
+def msm_stream(curve: str, points, stream, c: int, lanes: int, blind=None):
+    """msm from its live stream (keys, point ids, DROP) on: the
+    accumulation, reduction and fold, none of which waits for the
+    device."""
     W = n_windows(c)
     nb = 1 << c
-    keys, pids, drop = live_stream(points, scalars, c)
+    keys, pids, drop = stream
     if keys.shape[0] == 0:      # every scalar 0 or every point infinite
         res = tuple(t[0] for t in _zeros_pts(curve, 1, keys.device))
         return res if blind is None else res + (
@@ -564,11 +582,14 @@ def make_blind(curve: str, device):
 
 
 def unblind_msm(curve: str, host_pt, wts, R_host, c: int):
-    """host_pt - (sum_w 2^{c*w} * wts[w]) * R."""
-    w = np.asarray(wts, dtype=np.int64).reshape(-1)
+    """host_pt - (sum_w 2^{c*w} * wts[w]) * R. wts is (W,), or (k, W)
+    stacked from the k partials of a sharded MSM, whose columns are summed
+    per window."""
+    w = np.asarray(wts, dtype=np.int64)
+    w = w.reshape(-1, w.shape[-1])
     m = 0
-    for i, x in enumerate(w):
-        m = (m + (int(x) << (c * i))) % R_MOD
+    for i in range(w.shape[1]):
+        m = (m + (sum(int(x) for x in w[:, i]) << (c * i))) % R_MOD
     if m == 0:
         return host_pt
     if curve == "g1":

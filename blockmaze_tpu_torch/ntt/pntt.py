@@ -64,15 +64,19 @@ def fft_passes(k: int, tile_log: int = FFT_TILE_LOG):
 
 
 def fft_plain(a, perm, tw, pre=None, scale=None, post=None):
-    """The in-order DIT FFT as a loop: a times pre, gathered through perm,
-    then stage s over the twiddles tw[2^s - 1 : 2^(s+1) - 1] (tw is the
-    (m - 1, 16) concatenation of the per-stage tables), then times scale
-    and times post (each factor optional)."""
+    """The in-order DIT FFT as a loop, of each block of m = len(perm) rows
+    of a (a batch of FFTs stored one after the other): a times pre, each
+    block gathered through perm, then stage s over the twiddles
+    tw[2^s - 1 : 2^(s+1) - 1] (tw is the (m - 1, 16) concatenation of the
+    per-stage tables), then times scale and times post (each factor
+    optional)."""
     if pre is not None:
         a = mul_elementwise_plain(a, pre)
-    a = a.index_select(0, perm).to(torch.int32)
+    m = perm.shape[0]
+    a = a.reshape(-1, m, tf.N).index_select(1, perm).reshape(-1, tf.N) \
+        .to(torch.int32)
     span = 1
-    while span < a.shape[0]:
+    while span < m:
         a = butterfly_plain(a, tw[span - 1:2 * span - 1], span)
         span *= 2
     for f in (scale, post):
@@ -82,24 +86,25 @@ def fft_plain(a, perm, tw, pre=None, scale=None, post=None):
 
 
 def fft(a, perm, tw, pre=None, scale=None, post=None, out=None):
-    """In-order radix-2 DIT FFT of m = 2^k rows:
-    out = stages((a * pre)[perm]) * scale * post. perm (m,) int32, tw
-    (m - 1, 16) concatenated twiddles, stage s at row 2^s - 1; the factors
-    are optional, pre and post (m, 16) (pre at the source index: a coset
-    FFT's powers), scale one (1, 16) row (an inverse FFT's 1/m). The
-    result goes to `out` if given (an (m, 16) tensor, e.g. a row slice of a
-    larger one). On the card: one launch per pass of fft_passes(k), in
+    """In-order radix-2 DIT FFT of m = 2^j rows, of each block of m rows of
+    a (n = 2^k rows, k >= j: a batch of 2^(k-j) FFTs stored one after the
+    other): out = stages((a * pre)[perm]) * scale * post. perm (m,) int32,
+    tw (m - 1, 16) concatenated twiddles, stage s at row 2^s - 1; the
+    factors are optional, pre and post (n, 16) (pre at the source index: a
+    coset FFT's powers), scale one (1, 16) row (an inverse FFT's 1/m). The
+    result goes to `out` if given (an (n, 16) tensor, e.g. a row slice of a
+    larger one). On the card: one launch per pass of fft_passes(j), in
     tiles of 2^d elements for the deepest pass's d stages; pre rides in
     the first pass, scale and post in the last."""
     given = [t for t in (pre, scale, post, out) if t is not None]
     if kn.on_cpu(a, perm, tw, *given):
         res = fft_plain(a, perm, tw, pre, scale, post)
         return res if out is None else out.copy_(res)
-    m = a.shape[0]
-    k = m.bit_length() - 1
-    if m != 1 << k or a.shape != (m, tf.N) or perm.shape != (m,) \
-            or tw.shape != (m - 1, tf.N) \
-            or any(f is not None and f.shape != (m, tf.N)
+    m, n = perm.shape[0], a.shape[0]
+    j, k = m.bit_length() - 1, n.bit_length() - 1
+    if m != 1 << j or n != 1 << k or k < j or a.shape != (n, tf.N) \
+            or perm.shape != (m,) or tw.shape != (m - 1, tf.N) \
+            or any(f is not None and f.shape != (n, tf.N)
                    for f in (pre, post, out)) \
             or (scale is not None and scale.numel() != tf.N):
         raise ValueError(f"fft: bad shapes {tuple(a.shape)}, "
@@ -107,15 +112,15 @@ def fft(a, perm, tw, pre=None, scale=None, post=None, out=None):
                          f"{[tuple(f.shape) for f in given]}")
     kn.check_cuda("fft", a, perm, tw, *given)
     kn.check_aligned("fft", a, tw, *given)
-    passes = fft_passes(k)
+    passes = fft_passes(j)
     tile_log = passes[0][1]     # the deepest pass: tiles of 2^tile_log
     out = torch.empty_like(a) if out is None else out
     scratch = out if len(passes) == 1 else torch.empty(
-        (m, 8), dtype=torch.int32, device=a.device)
+        (n, 8), dtype=torch.int32, device=a.device)
     for i, (s0, s1) in enumerate(passes):
         first, last = i == 0, i == len(passes) - 1
         kn.K["fft"](out if last else scratch, a if first else scratch, perm,
-                    tw, k, tile_log, s0, s1, int(first), int(last), pre,
+                    tw, k, j, tile_log, s0, s1, int(first), int(last), pre,
                     scale, post)
     return out
 

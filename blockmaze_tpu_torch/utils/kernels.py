@@ -43,7 +43,7 @@ CURVE_ID = {"g1": 1, "g2": 2}
 
 # C entry points and their argument types (csrc/*.cu).
 SIGNATURES = {
-    "bm_fft_pass": [_P] * 4 + [_I] * 6 + [_P] * 4,
+    "bm_fft_pass": [_P] * 4 + [_I] * 7 + [_P] * 4,
     "bm_butterfly_stage": [_P, _P, _P, _LL, _LL, _P],
     "bm_mul_elementwise": [_P, _P, _P, _LL, _I, _P],
     "bm_qap_matvec": [_P] * 6 + [_I] * 3 + [_P],
@@ -167,12 +167,16 @@ class Kernel:
         self.launches = 0
 
     def __call__(self, *args):
-        """Launch on the current stream; tensor arguments pass as their
+        """Launch on the card of the first tensor argument, on that card's
+        current stream, with that card current (an entry point's attribute
+        calls apply to the current device); tensor arguments pass as their
         device pointers."""
         fn = getattr(LIB.get(), self.entry)
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
-                  for a in args), stream)
+        dev = next(a.device for a in args if isinstance(a, torch.Tensor))
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
+                      for a in args), stream)
         if rc != 0:
             raise RuntimeError(f"{self.name}: CUDA launch failed with error "
                                f"{rc}")
@@ -180,9 +184,13 @@ class Kernel:
 
 
 def check_cuda(name: str, *tensors, counts=()):
-    """Validate what a kernel takes: CUDA and contiguous; coordinates, keys
-    and ids int32, masks uint8, and only the tensors passed as `counts`
-    int64."""
+    """Validate what a kernel takes: CUDA, all on one card, and contiguous;
+    coordinates, keys and ids int32, masks uint8, and only the tensors
+    passed as `counts` int64."""
+    cards = {t.device for t in tensors + tuple(counts)}
+    if len(cards) > 1:
+        raise ValueError(f"{name}: tensors on more than one device: "
+                         f"{sorted(map(str, cards))}")
     for t, dtypes in ([(t, (torch.int32, torch.uint8)) for t in tensors]
                       + [(t, (torch.int64,)) for t in counts]):
         if not t.is_cuda:
@@ -204,13 +212,16 @@ def check_aligned(name: str, *tensors):
 
 def on_cpu(*tensors) -> bool:
     """True if every tensor lies on the CPU (the plain version's domain);
-    False if every one is on CUDA; raises on anything else."""
-    devs = {t.device.type for t in tensors}
-    if devs == {"cpu"}:
+    False if every one is on one and the same card; raises on anything
+    else (mixed kinds, or more than one card)."""
+    devs = {t.device for t in tensors}
+    kinds = {d.type for d in devs}
+    if kinds == {"cpu"}:
         return True
-    if devs == {"cuda"}:
+    if kinds == {"cuda"} and len(devs) == 1:
         return False
-    raise ValueError(f"tensors on unsupported/mixed devices: {devs}")
+    raise ValueError(f"tensors on unsupported/mixed devices: "
+                     f"{sorted(map(str, devs))}")
 
 
 K = {

@@ -1,6 +1,10 @@
-"""Smoke run of the PyTorch/CUDA port (blockmaze_tpu_torch) on one GPU.
+"""Smoke run of the PyTorch/CUDA port (blockmaze_tpu_torch) on one GPU, or
+on four.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                # every phase; one card is enough
+    python3 chip_smoke.py --mesh-only    # build, mint and deposit20 on one
+                                         # card, then phase 7 (for a call
+                                         # on four cards)
 
 Phases, each timed; any failure raises and the script exits nonzero:
   0. build the CUDA kernels from blockmaze_tpu_torch/csrc (nvcc, sm_90a);
@@ -54,7 +58,30 @@ Phases, each timed; any failure raises and the script exits nonzero:
   6. Prover.prove_batch on mint (step domain) and deposit (basic, 2^19):
      four distinct witnesses, each batch proof verified and equal to prove
      at the same (r, s), and batches of B = 1, 2, 4, 8 (mint) and 1, 4
-     (deposit) timed beside B x the steady single proof.
+     (deposit) timed beside B x the steady single proof;
+  7. the mesh (parallel/): MESH_SHARDS = 4 shards, on cuda:0..3 when four
+     cards are visible, else all on cuda:0 (an explicit device list; the
+     placement and torch.cuda.device_count() are printed). With two or
+     more cards, kernels on cuda:1 tensors while cuda:0 is current
+     (mul_elementwise and fft against their plain versions, an MSM
+     against the same MSM on cuda:0 and its closed form). The batched
+     fft (one launch over a shard's block of sub-FFTs) bit-exact against
+     fft_plain at the sharded shapes: mint's 2^17 = 256 x 512 and 2^16 =
+     256 x 256 (forward and inverse tables) and deposit20's 2^20 = 1024 x
+     1024 (forward with the coset, inverse with 1/m and coset^-1 in
+     standard form), each shard's column batch (step 2's twiddles as its
+     post factor) and row batch, timed with its bound. The sharded FFT,
+     inverse, coset FFT and inverse coset FFT at basic 2^18 and 2^20 and
+     at mint's step domain, each equal to the single-card tntt result and
+     timed beside it. sharded_msm over 1, 2 and 4 shards on phase 2's
+     2^18 G1 points against the closed form, with and without a blind:
+     ms, Mpoints/s and efficiency (scripts/scaling.py's counterpart). A
+     Prover on the mesh over mint's and deposit20's keys from phases 3-4:
+     two proofs at (r, s) = (1, 2), each equal to the single-card proof at
+     (1, 2), and one at random (r, s), all verified, their launches
+     against MESH_PATH, their phases beside the single-card steady
+     proof's; one mint prove_batch of B = 2 on the mesh, each proof
+     verified. A `mesh summary:` line holds phase 7's numbers.
 Each circuit's launch counts are reset just before its keygen and read
 just after it, and reset again just before its three proofs and read just
 after them; phase 5 reads them around each transaction and phase 6 around
@@ -75,12 +102,18 @@ qap_matvec, step_pre, step_post and qap_combine; on a basic domain at most
 qap_matvec, one qap_combine, no step_pre or step_post; on both at most one
 mul_elementwise (the witness's Montgomery form). add, double,
 mixed_add, mixed_add_noexc and butterfly are on neither path; phase 1
-holds them against their plain versions. A kernel's launches in
-the kernel table are its sum over both paths of every circuit. Each
+holds them against their plain versions. The mesh prove path by domain
+kind (MESH_PATH, per proof of a 4-shard Prover): the single-card path's
+kernels, each fft launch a shard's batch of column or row FFTs (at most
+112 on the step domain, 56 on a basic one), qap_matvec once a shard, and
+add, the K3 kernel, folding each MSM's partials (at most 5 x 3 a proof);
+never butterfly, double, the mixed adds or fixed_base_exp. A kernel's
+launches in the kernel table are its sum over every path of every
+circuit, phase 7's included. Each
 circuit prints a summary line (sizes, MSM shapes, keygen, Prover and
-proof times). The second-to-last line is the kernel table as JSON; the
-last line is the result JSON. With no GPU it exits nonzero before
-printing either.
+proof times). The second-to-last line is the kernel table as JSON (not
+printed with --mesh-only); the last line is the result JSON. With no GPU
+it exits nonzero before printing either.
 
 Bounds: the least time the card could take for a kernel's work on the
 inputs it was timed on, the larger of (bytes in + bytes out) / 3.35 TB/s
@@ -176,6 +209,40 @@ PROVE_PATH = {
 # phase 4's circuits, in order (mint is phase 3's); deposit20 is the
 # deposit at Merkle depth 20
 CIRCUITS = ["send", "redeem", "deposit", "deposit20"]
+# Phase 7: a mesh of MESH_SHARDS shards (cuda:0..3 with four cards, else
+# four shards on cuda:0), and the circuits it proves beside their
+# single-card proofs.
+MESH_SHARDS = 4
+MESH_CIRCUITS = ["mint", "deposit20"]
+# The mesh prove path by domain kind, per proof: each shard runs two fft
+# launches a transform (its batch of column FFTs, its batch of row FFTs;
+# a step domain's big and small part each), one qap_matvec (its block of
+# rows) and the MSM kernels of its block of every MSM; the lead device
+# the witness's Montgomery form, the step domain's stages and
+# qap_combine; each MSM folds its shards' partials with n - 1 point adds.
+MESH_NEVER = ["butterfly", "double", "mixed_add", "mixed_add_noexc",
+              "fixed_base_exp"]
+MESH_PATH = {
+    "step": {"launch": ["fft", "mul_elementwise", *QAP_KERNELS,
+                        *MSM_KERNELS, "add"],
+             "never": MESH_NEVER,
+             "at_most": [(["fft"], 28 * MESH_SHARDS),
+                         (["mul_elementwise"], 1),
+                         (["qap_matvec"], MESH_SHARDS),
+                         (["step_pre", "step_post", "qap_combine"], 8),
+                         (["add"], 5 * (MESH_SHARDS - 1))]},
+    "basic": {"launch": ["fft", "mul_elementwise", "qap_matvec",
+                         "qap_combine", *MSM_KERNELS, "add"],
+              "never": MESH_NEVER + ["step_pre", "step_post"],
+              "at_most": [(["fft"], 14 * MESH_SHARDS),
+                          (["mul_elementwise"], 1),
+                          (["qap_matvec"], MESH_SHARDS),
+                          (["qap_combine"], 1),
+                          (["add"], 5 * (MESH_SHARDS - 1))]},
+}
+# run_circuit's single-card results of MESH_CIRCUITS, for phase 7:
+# name -> (prover, vk, primary, aux, proof at (1, 2), proof timings)
+RUNS = {}
 ROW = 64               # bytes of one Fr element (16 int32 limbs)
 
 
@@ -217,6 +284,10 @@ def bound(products: int, nbytes: int):
 
 
 def main():
+    mesh_only = sys.argv[1:] == ["--mesh-only"]
+    if sys.argv[1:] and not mesh_only:
+        sys.exit(f"chip_smoke: unknown arguments {sys.argv[1:]} (the one "
+                 f"option is --mesh-only)")
     require_gpu()
     from blockmaze_tpu_torch.utils import kernels as kn
 
@@ -243,6 +314,33 @@ def main():
     kn.LIB.get()
     log(f"phase 0 build: {time.perf_counter() - t0:.1f}s ({lib})")
 
+    if mesh_only:
+        # the mesh's inputs alone: the single-card runs it is held against
+        path_counts = []
+        for circuit in MESH_CIRCUITS:
+            t0 = time.perf_counter()
+            path_counts += run_circuit(circuit, dev)[3]
+            log(f"{circuit} on one card: {time.perf_counter() - t0:.1f}s")
+    else:
+        path_counts = single_card_phases(dev, rng, report)
+
+    # ---- phase 7: the mesh -----------------------------------------------
+    t0 = time.perf_counter()
+    path_counts += phase7(dev, rng, report)
+    log(f"phase 7 mesh: {time.perf_counter() - t0:.1f}s")
+    for name in kn.K:
+        report[name]["launches"] = sum(c.get(name, 0) for c in path_counts)
+    log(f"total: {time.perf_counter() - t_all:.1f}s")
+    log(card)      # again, next to the results (the build's log is long)
+    if not mesh_only:
+        log(json.dumps({"kernels": [report[k] for k in ORDER]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+def single_card_phases(dev, rng, report):
+    """Phases 1-6; returns their paths' launch counts."""
     # ---- phase 1: parity -------------------------------------------------
     t0 = time.perf_counter()
     phase1(dev, rng, report)
@@ -276,14 +374,7 @@ def main():
         t0 = time.perf_counter()
         path_counts += phase6(name, dev)
         log(f"phase 6 prove_batch {name}: {time.perf_counter() - t0:.1f}s")
-    for name in kn.K:
-        report[name]["launches"] = sum(c.get(name, 0) for c in path_counts)
-    log(f"total: {time.perf_counter() - t_all:.1f}s")
-    log(card)      # again, next to the results (the build's log is long)
-    log(json.dumps({"kernels": [report[k] for k in ORDER]}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+    return path_counts
 
 
 # ---------------------------------------------------------------------------
@@ -822,12 +913,14 @@ def check_launches(path, counts, expected, forbidden=()):
                            f"longer uses: {stray}")
 
 
-def check_prove_counts(kind, counts, proofs):
+def check_prove_counts(kind, counts, proofs, path=None):
     """The prove path's launches over `proofs` proofs against
-    PROVE_PATH[kind] (kind: the domain's, "step" or "basic")."""
-    want = PROVE_PATH[kind]
-    check_launches(f"{kind}-domain prove path ({proofs} proofs)", counts,
-                   want["launch"], want["never"])
+    PROVE_PATH[kind] (kind: the domain's, "step" or "basic"), or against
+    path[kind] (MESH_PATH)."""
+    want = (path or PROVE_PATH)[kind]
+    check_launches(f"{kind}-domain {'mesh ' if path else ''}prove path "
+                   f"({proofs} proofs)", counts, want["launch"],
+                   want["never"])
     log("  per proof: " + json.dumps(
         {k: v / proofs for k, v in counts.items() if v}))
     for group, most in want["at_most"]:
@@ -920,6 +1013,8 @@ def run_circuit(name, dev):
             (proofs[1].a, proofs[1].b, proofs[1].c):
         raise AssertionError(f"{name}: two proofs with equal (r, s) differ")
     log("  proofs 0 and 1 (equal r, s; fresh blinds) equal: True")
+    if name in MESH_CIRCUITS:
+        RUNS[name] = (prover, vk, primary, aux, proofs[0], times[1])
     matrix_stats(name, prover)
     summary["live"] = digit_stats(prover)
     log(f"  circuit summary: {json.dumps(summary)}")
@@ -1608,6 +1703,346 @@ def profile_prove(prover, primary, aux):
         hit = [(us, n) for key, us, n, _ in rows if tag in key]
         log(f"    {tag:<30} {sum(u for u, _ in hit) / 1e3:9.3f} ms "
             f"{sum(n for _, n in hit):5d}x")
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the mesh (parallel/)
+# ---------------------------------------------------------------------------
+
+def sync_all(devices):
+    for d in dict.fromkeys(devices):
+        torch.cuda.synchronize(d)
+
+
+def wall_ms(fn, devices, reps: int = 3) -> float:
+    """Milliseconds per call of fn by the host clock, every device synced
+    before and after (a mesh's work spans cards); one warm call first."""
+    fn()
+    sync_all(devices)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    sync_all(devices)
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def make_phase7_mesh(dev):
+    """MESH_SHARDS shards: the first MESH_SHARDS cards when that many are
+    visible, else MESH_SHARDS shards on dev (an explicit device list)."""
+    from blockmaze_tpu_torch.parallel import mesh as pm
+    cards = torch.cuda.device_count()
+    if cards >= MESH_SHARDS:
+        mesh = pm.make_mesh(MESH_SHARDS)
+        how = "one card a shard"
+    else:
+        mesh = pm.Mesh([dev] * MESH_SHARDS)
+        how = f"all {MESH_SHARDS} shards share {dev}"
+    log(f"  torch.cuda.device_count() = {cards}; mesh of {mesh.size} "
+        f"shards, {how}: {[str(d) for d in mesh.devices]}")
+    return mesh
+
+
+def other_card_parity(rng):
+    """With cuda:0 current, kernels on cuda:1 tensors: mul_elementwise and
+    fft against their plain versions there, and an MSM (msm_combine and
+    msm_triangle set their shared-memory attribute per device) against
+    the same MSM on cuda:0 and its closed form."""
+    from blockmaze_tpu_torch.curves import host_curve as HC
+    from blockmaze_tpu_torch.curves import tcurve as tc
+    from blockmaze_tpu_torch.fields import tfield as tf
+    from blockmaze_tpu_torch.fields.constants import R_MOD
+    from blockmaze_tpu_torch.msm import pippenger as pp
+    from blockmaze_tpu_torch.ntt import domain as TD
+    from blockmaze_tpu_torch.ntt import pntt, tntt
+    d0, d1 = torch.device("cuda", 0), torch.device("cuda", 1)
+    with torch.cuda.device(d0):
+        a, b = rand_field(rng, (1 << 16,), d1), rand_field(rng, (1 << 16,), d1)
+        check_kernel("mul_elementwise", "on cuda:1, cuda:0 current",
+                     lambda: pntt.mul_elementwise(a, b),
+                     lambda: pntt.mul_elementwise_plain(a, b))
+        T = tntt.tables_to(tntt.qap_tables(TD.get_evaluation_domain(1 << 16)),
+                           d1)
+        check_kernel("fft", "2^16 on cuda:1, cuda:0 current",
+                     lambda: pntt.fft(a, T["perm"], T["fwd"]),
+                     lambda: pntt.fft_plain(a, T["perm"], T["fwd"]))
+        n = 1 << 14
+        pts0 = curve_points("g1", n, d0)
+        pts1 = tuple(t.to(d1) for t in pts0)
+        py = random.Random(SEED + 1)
+        ks = [py.randrange(R_MOD) for _ in range(n)]
+        sc = tf.to_tensor(tf.ints_to_limbs(ks), d0)
+        c = pp.default_window(n)
+        got = [tc.g1_jacobian_to_host(tuple(
+            v[None] for v in pp.msm("g1", p, sc.to(p[0].device), c,
+                                    pp.MAX_LANES)))[0] for p in (pts1, pts0)]
+        want = HC.g1_mul(HC.g1_generator(),
+                         sum((i + 1) * k for i, k in enumerate(ks)) % R_MOD)
+        if torch.cuda.current_device() != 0 or got != [want, want]:
+            raise AssertionError("msm on cuda:1 with cuda:0 current differs")
+        log(f"  msm G1 2^14 on cuda:1 (cuda:0 current) = on cuda:0 = "
+            f"closed form: True")
+
+
+def mesh_tables(mesh, domain):
+    """The single-card tables of `domain` on the lead device and its
+    sharded ones on the mesh; logs the sharded tables' host and upload
+    seconds (step 2's twiddles are m host products, built once a
+    process per domain and mesh size)."""
+    from blockmaze_tpu_torch.ntt import tntt
+    from blockmaze_tpu_torch.parallel import sntt
+    T1 = tntt.tables_to({**tntt.qap_tables(domain),
+                         **tntt.std_tables(domain)}, mesh.lead)
+    t0 = time.perf_counter()
+    host = sntt.sqap_tables(domain, mesh.size)
+    t_host = time.perf_counter() - t0
+    TS = sntt.tables_to(host, mesh)
+    sync_all(mesh.devices)
+    log(f"  sharded tables m={domain.m} {domain_kind(domain)}: host "
+        f"{t_host:.2f}s (cached after), upload "
+        f"{time.perf_counter() - t0 - t_host:.2f}s")
+    return T1, TS
+
+
+def batched_fft_parity(mesh, plans, rng, report, rows):
+    """pntt.fft on one shard's batches at the sharded shapes, against
+    fft_plain on the same tensors, timed with its bound: step 1's batch of
+    m2 / n column FFTs of m1 (step 2's twiddles as its post factor, a
+    coset FFT's powers as its pre) and step 4's m1 / n row FFTs of m2 (an
+    inverse's 1/m as its scale, coset^-1 as its post). plans: (label,
+    plan, {step: factors}); appends a row per case to rows."""
+    from blockmaze_tpu_torch.ntt import pntt
+    n = mesh.size
+    for label, plan, factors in plans:
+        m1, m2 = plan["m1"], plan["m2"]
+        S = plan["shards"][0]
+        for step, (perm, tw, B, mk) in (("1", (S["p1"], S["t1"], m2 // n,
+                                                m1)),
+                                         ("4", (S["p2"], S["t2"], m1 // n,
+                                                m2))):
+            f = dict(factors.get(step, {}))
+            if step == "1":
+                f["post"] = S["tw"]
+            a = rand_field(rng, (B * mk,), S["p1"].device)
+            k = mk.bit_length() - 1
+            res = check_kernel(
+                "fft", f"{label} step {step}: {B} x 2^{k} "
+                f"{'+'.join(sorted(f)) or 'no factors'}",
+                lambda: pntt.fft(a, perm, tw, **f),
+                lambda: pntt.fft_plain(a, perm, tw, **f), reps=20)
+            products = B * k * mk // 2 + B * mk * sum(
+                1 for v in f.values() if v.numel() > 16) + (
+                B * mk if "scale" in f else 0)
+            moved = 2 * nbytes(a) + nbytes(perm, tw, *f.values())
+            b_ms, b_by = bound(products, moved)
+            log(f"  {'':<16} bound {b_ms:.5f} ms ({b_by}: {products} "
+                f"products, {moved} bytes)")
+            report["fft"]["max_abs_err"] = max(report["fft"].get(
+                "max_abs_err", 0), res[0])
+            rows.append({"shape": f"{label} step {step} {B}x2^{k}",
+                         "ms": round(res[1], 5), "plain_ms": round(res[2], 3),
+                         "bound_ms": round(b_ms, 5)})
+
+
+def mesh_fft_parity(mesh, dev, rng, report, summary):
+    """The batched fft at the sharded shapes (mint's 2^17 = 256 x 512 and
+    2^16 = 256 x 256, deposit20's 2^20 = 1024 x 1024), then the sharded
+    FFT, inverse, coset FFT and inverse coset FFT (standard form) at basic
+    2^18 and 2^20 and at mint's step domain, each equal to the
+    single-card tntt result and timed beside it."""
+    from blockmaze_tpu_torch.ntt import domain as TD
+    from blockmaze_tpu_torch.ntt import tntt
+    from blockmaze_tpu_torch.parallel import sntt
+    doms = [TD.get_evaluation_domain(1 << 18),
+            TD.get_evaluation_domain(1 << 20),
+            TD.get_evaluation_domain((1 << 17) + (1 << 16))]
+    tabs = [mesh_tables(mesh, d) for d in doms]
+    T20, T_mint = tabs[1][1], tabs[2][1]
+    rows = []
+    batched_fft_parity(mesh, [
+        ("mint big 2^17 fwd", T_mint["big_fwd"], {}),
+        ("mint big 2^17 inv", T_mint["big_inv"], {}),
+        ("mint small 2^16 fwd", T_mint["small_fwd"], {}),
+        ("mint small 2^16 inv", T_mint["small_inv"], {}),
+        ("2^20 fwd coset", T20["fwd"], {"1": {"pre": T20["coset"][0]}}),
+        ("2^20 inv 1/m coset^-1 std", T20["inv"],
+         {"4": {"scale": T20["minv"][0],
+                "post": T20["coset_inv_std"][0]}})], rng, report, rows)
+    summary["batched_fft"] = rows
+    out = []
+    for d, (T1, TS) in zip(doms, tabs):
+        a = rand_field(rng, (d.m,), dev)
+        for op, one, sharded in (
+                ("fft", lambda: tntt.fft_t(d, a, T1),
+                 lambda: sntt.s_fft_t(mesh, d, a, TS)),
+                ("ifft", lambda: tntt.ifft_t(d, a, T1),
+                 lambda: sntt.s_ifft_t(mesh, d, a, TS)),
+                ("coset_fft", lambda: tntt.coset_fft_t(d, a, T1),
+                 lambda: sntt.s_coset_fft_t(mesh, d, a, TS)),
+                ("icoset_fft std", lambda: tntt.icoset_fft_t(d, a, T1, True),
+                 lambda: sntt.s_icoset_fft_t(mesh, d, a, TS, True))):
+            ok = torch.equal(one(), sharded())
+            ms1 = wall_ms(one, mesh.devices, 10)
+            msn = wall_ms(sharded, mesh.devices, 10)
+            label = f"m={d.m} {domain_kind(d)} {op}"
+            log(f"  sharded {label:<34} equal to single card: {ok}; "
+                f"single {ms1:.4f} ms, {mesh.size} shards {msn:.4f} ms")
+            if not ok:
+                raise AssertionError(f"sharded {label} != single card")
+            out.append({"op": label, "single_ms": round(ms1, 4),
+                        "sharded_ms": round(msn, 4)})
+    summary["sharded_fft"] = out
+
+
+def msm_scaling(mesh, dev, summary):
+    """sharded_msm over 1, 2 and 4 shards of the mesh on phase 2's 2^18 G1
+    points i*G (placed on their shards first, as a Prover holds them),
+    with and without a blind, each equal to (sum_i i*k_i)*G; ms by the
+    host clock (all cards synced), Mpoints/s and the efficiency t_1 / (k
+    t_k). The counterpart of scripts/scaling.py."""
+    from blockmaze_tpu_torch.curves import host_curve as HC
+    from blockmaze_tpu_torch.curves import tcurve as tc
+    from blockmaze_tpu_torch.fields import tfield as tf
+    from blockmaze_tpu_torch.fields.constants import R_MOD
+    from blockmaze_tpu_torch.msm import pippenger as pp
+    from blockmaze_tpu_torch.parallel import mesh as pm
+    n = 1 << 18
+    pts = curve_points("g1", n, dev)
+    py = random.Random(SEED)
+    ks = [py.randrange(R_MOD) for _ in range(n)]
+    sc = tf.to_tensor(tf.ints_to_limbs(ks), dev)
+    want = HC.g1_mul(HC.g1_generator(),
+                     sum((i + 1) * k for i, k in enumerate(ks)) % R_MOD)
+    c = pp.default_window(n)
+    rows, base = [], {}
+    for k in (1, 2, 4):
+        sub = pm.Mesh(mesh.devices[:k])
+        shards = sub.shard_points(pts)
+        for blinded in (False, True):
+            R, blind = pp.make_blind("g1", dev) if blinded else (None, None)
+
+            def run():
+                return pm.sharded_msm(sub, "g1", shards, sc, c, pp.MAX_LANES,
+                                      blind=blind)
+
+            res = run()
+            got = tc.g1_jacobian_to_host(tuple(v[None] for v in res[:3]))[0]
+            if blinded:
+                got = pp.unblind_msm("g1", got, res[3].cpu().numpy(), R, c)
+            ms = wall_ms(run, sub.devices, 3)
+            base.setdefault(blinded, ms)
+            eff = base[blinded] / (k * ms)
+            log(f"  sharded_msm G1 2^18 c={c} over {k} shard(s) "
+                f"{'blinded' if blinded else 'unblinded'}: {ms:.3f} ms, "
+                f"{n / ms / 1e3:.2f} Mpoints/s, efficiency {eff:.3f}; "
+                f"equals (sum i*k_i)*G: {got == want}")
+            if got != want:
+                raise AssertionError(f"sharded_msm over {k} shards != "
+                                     f"closed form")
+            rows.append({"shards": k, "blinded": blinded,
+                         "ms": round(ms, 3),
+                         "mpoints_s": round(n / ms / 1e3, 2),
+                         "efficiency": round(eff, 3)})
+    summary["msm_scaling"] = rows
+
+
+def mesh_prove(name, mesh, summary):
+    """A Prover on the mesh over circuit `name`'s keys (phases 3-4): three
+    proofs, two at (r, s) = (1, 2) each equal to the single-card proof at
+    (1, 2), one at random (r, s); all verified; the launches per proof
+    against MESH_PATH; phase seconds beside the single-card proof's; then
+    one more proof under torch.profiler for the device's busy time.
+    Returns (the mesh Prover, [its launches])."""
+    from blockmaze_tpu_torch.groth16 import verifier
+    from blockmaze_tpu_torch.groth16.prover import Prover
+    from blockmaze_tpu_torch.utils import kernels as kn
+    prover1, vk, primary, aux, want, single = RUNS[name]
+    t0 = time.perf_counter()
+    prover = Prover(prover1.dpk, mesh=mesh)
+    sync_all(mesh.devices)
+    init_s = time.perf_counter() - t0
+    kind = domain_kind(prover.domain)
+    log(f"  {name}: mesh Prover {init_s:.1f}s (sharded QAP: "
+        f"{prover.sharded_qap}; MSM blocks nA/n={prover.nA // mesh.size}, "
+        f"nH/n={prover.nH // mesh.size})")
+    proofs, times = [], []
+    kn.reset_counts()
+    for i, (r, s) in enumerate(((1, 2), (1, 2), (None, None))):
+        t0 = time.perf_counter()
+        proofs.append(prover.prove(primary, aux, r=r, s=s))
+        dt = time.perf_counter() - t0
+        phases = {k: round(v, 4) for k, v in prover.timings.items()}
+        times.append({"s": round(dt, 4), **phases})
+        log(f"  {name} mesh prove {i}: {dt:.3f}s phases "
+            f"{json.dumps(phases)}")
+    sync_all(mesh.devices)
+    counts = kn.counts()
+    check_prove_counts(kind, counts, len(proofs), MESH_PATH)
+    for i, proof in enumerate(proofs):
+        if not verifier.verify(vk, primary, proof):
+            raise AssertionError(f"{name} mesh proof {i} rejected")
+    for i in (0, 1):
+        if (proofs[i].a, proofs[i].b, proofs[i].c) != (want.a, want.b,
+                                                       want.c):
+            raise AssertionError(f"{name} mesh proof {i} != single-card "
+                                 f"proof at (1, 2)")
+    log(f"  {name}: mesh proofs 0 and 1 equal the single-card proof at "
+        f"(1, 2); all three verified")
+    wall, _, busy, _ = profiled(lambda: prover.prove(primary, aux))
+    log(f"  {name}: profiled mesh proof: wall {wall:.3f}s (profiler on), "
+        f"device busy {busy * 1e3:.1f} ms summed over the mesh's cards")
+    summary[name] = {"domain": kind, "m": prover.domain.m,
+                     "sharded_qap": prover.sharded_qap,
+                     "mesh_init_s": round(init_s, 2),
+                     "single_steady": single, "mesh_proofs": times,
+                     "profiled": {"wall_s": round(wall, 4),
+                                  "busy_s": round(busy, 4)}}
+    log(f"  {name}: steady proof single card {json.dumps(single)}, mesh "
+        f"{json.dumps(times[1])}")
+    return prover, [counts]
+
+
+def mesh_batch(prover, summary):
+    """prove_batch of two mint witnesses on the mesh Prover: each proof
+    verified, the launches within MESH_PATH. Returns [its launches]."""
+    from blockmaze_tpu_torch.groth16 import verifier
+    from blockmaze_tpu_torch.utils import kernels as kn
+    vk = RUNS["mint"][1]
+    insts = [batch_instance("mint", i) for i in range(2)]
+    kn.reset_counts()
+    t0 = time.perf_counter()
+    proofs = prover.prove_batch(insts)
+    dt = time.perf_counter() - t0
+    sync_all(prover.mesh.devices)
+    counts = kn.counts()
+    check_prove_counts(domain_kind(prover.domain), counts, 2, MESH_PATH)
+    for (primary, _), proof in zip(insts, proofs):
+        if not verifier.verify(vk, primary, proof):
+            raise AssertionError("mint mesh batch proof rejected")
+    prover.close()
+    log(f"  mint prove_batch B=2 on the mesh: {dt:.3f}s (starts the worker "
+        f"processes); both verified")
+    summary["mint_batch_B2_s"] = round(dt, 3)
+    return [counts]
+
+
+def phase7(dev, rng, report):
+    """The mesh (docstring, phase 7). Returns the mesh paths' launches."""
+    mesh = make_phase7_mesh(dev)
+    summary = {"shards": mesh.size,
+               "devices": [str(d) for d in mesh.devices],
+               "device_count": torch.cuda.device_count()}
+    if torch.cuda.device_count() >= 2:
+        other_card_parity(rng)
+    mesh_fft_parity(mesh, dev, rng, report, summary)
+    msm_scaling(mesh, dev, summary)
+    path_counts = []
+    for name in MESH_CIRCUITS:
+        prover, counts = mesh_prove(name, mesh, summary)
+        path_counts += counts
+        if name == "mint":
+            path_counts += mesh_batch(prover, summary)
+    log(f"  mesh summary: {json.dumps(summary)}")
+    return path_counts
 
 
 if __name__ == "__main__":
