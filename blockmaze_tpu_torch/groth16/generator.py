@@ -417,7 +417,8 @@ def generate_cached(pb: Protoboard, name: str, seed: int, cache_dir: str,
         t0 = _timed(timings, "build", t0)
         os.makedirs(cache_dir, exist_ok=True)
         K.save_device_pk(dpk, npz)
-        io.write_verification_key(vk_path, vk)
+        K.replace_atomically(vk_path,
+                             lambda tmp: io.write_verification_key(tmp, vk))
     out = K.load_device_pk(npz), io.load_verification_key(vk_path), generated
     if generated:
         _timed(timings, "write", t0)

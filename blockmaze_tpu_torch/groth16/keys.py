@@ -113,7 +113,21 @@ _COO_FIELDS = ["a_row", "a_var", "a_coeff", "b_row", "b_var", "b_coeff",
                "c_row", "c_var", "c_coeff"]
 
 
+def replace_atomically(path: str, write):
+    """write(tmp) into a temporary file beside path, then rename it onto
+    path: a reader (another process) sees no file or the whole file,
+    never a part of one."""
+    tmp = f"{path}.{os.getpid()}.tmp"
+    try:
+        write(tmp)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
 def save_device_pk(dpk, path: str):
+    """Write dpk as the v1 npz at path (replace_atomically)."""
     data = {"version": np.int64(CACHE_VERSION)}
     for f in _INT_FIELDS:
         data[f] = np.int64(getattr(dpk, f))
@@ -130,8 +144,13 @@ def save_device_pk(dpk, path: str):
     for f in _COO_FIELDS:
         data[f] = getattr(dpk, f)
     # uncompressed: compressing the limb arrays was most of keygen's host
-    # time; np.load reads either kind, so both packages load the file
-    np.savez(path, **data)
+    # time; np.load reads either kind, so both packages load the file.
+    # Written through a file object, so numpy adds no ".npz" to its name
+    def write(tmp):
+        with open(tmp, "wb") as f:
+            np.savez(f, **data)
+
+    replace_atomically(path, write)
 
 
 def load_device_pk(path: str) -> DevicePK:

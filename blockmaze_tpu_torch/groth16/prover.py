@@ -19,13 +19,18 @@ batch, in prove_batch) also draws fresh MSM blinds (msm/pippenger.py), so
 the proof for a given (r, s) is the same whatever the blinds.
 
 With a mesh (parallel/mesh.py), as the JAX package's Prover(mesh=...):
-every MSM's points lie in one block per shard from init on and the MSMs
-run through parallel.mesh.sharded_msm; the QAP runs through
-parallel.sqap.sharded_qap_h (the key's CSR cut by rows, every FFT in four
-steps over the mesh) when the domain splits evenly over the mesh
-(sqap.can_shard_domain), else on the lead device as on one card. The
-witness, the blinds, the QAP's elementwise passes and the results live on
-the lead device. A proof equals the single-card proof at the same (r, s).
+every MSM's points lie in one block per shard from init on (each block
+uploaded from the host to its shard's device) and the MSMs run through
+parallel.mesh.sharded_msm; the QAP runs through parallel.sqap.sharded_qap_h
+(the key's CSR cut by rows, every FFT in four steps over the mesh) when
+the domain splits evenly over the mesh (sqap.can_shard_domain), else on
+the lead device as on one card. The witness, the blinds, the QAP's
+elementwise passes and the results live on the lead device. On a
+ProcessMesh (parallel.distributed.global_mesh) every process builds the
+Prover and calls prove with the same witness; each holds only its own
+block of every query and of the CSR, and the draws (r, s when not given,
+the blinds' scalars) are rank 0's, broadcast, so every process returns
+the same proof. A proof equals the single-card proof at the same (r, s).
 """
 
 from __future__ import annotations
@@ -85,8 +90,8 @@ class Prover:
     tensor lives: the card by default, where the kernels run; "cpu" runs
     their plain versions. lanes is the most MSM accumulation lanes
     (pippenger.lane_cut cuts fewer for a sparse stream), window the
-    Pippenger window c. mesh (parallel.mesh.Mesh) shards the proof over
-    its devices, its first the lead device (device is then unused)."""
+    Pippenger window c. mesh (parallel.mesh.Mesh or ProcessMesh) shards
+    the proof over its devices, its lead device in place of device."""
 
     def __init__(self, dpk, device="cuda", lanes: Optional[int] = None,
                  window: Optional[int] = None, mesh=None):
@@ -103,7 +108,9 @@ class Prover:
             # a mesh cuts every MSM into equal blocks (powers of two)
             return max(_next_pow2(n), n_dev)
 
-        dk = K.to_device(dpk, self.device)
+        # on a mesh each query goes to the shards' devices block by block,
+        # from the host, so no device holds a whole query
+        dk = K.to_device(dpk, self.device if mesh is None else "cpu")
         m = self.domain.m
         self.nA = pad(dpk.num_variables + 1)
         self.A = self._place(_pad_points(dk.A, self.nA))
@@ -115,8 +122,7 @@ class Prover:
                                          self.nH))
         self.nL = pad(len(dpk.L[2]))
         self.L = self._place(_pad_points(dk.L, self.nL))
-        self.B_idx = dk.B_idx
-        self.csr = dk.csr
+        self.B_idx = dk.B_idx.to(self.device)
         self.sharded_qap = mesh is not None and sqap.can_shard_domain(
             self.domain, n_dev)
         if self.sharded_qap:
@@ -124,6 +130,9 @@ class Prover:
             self.tables = sntt.tables_to(sntt.sqap_tables(self.domain,
                                                           n_dev), mesh)
         else:
+            self.csr = K.MatrixCSR(*(getattr(dk.csr, f).to(self.device)
+                                     for f in ("ptr", "var", "coeff",
+                                               "long_rows")))
             self.tables = tntt.tables_to({**tntt.qap_tables(self.domain),
                                           **tntt.std_tables(self.domain)},
                                          self.device)
@@ -141,7 +150,8 @@ class Prover:
         return pts if self.mesh is None else self.mesh.shard_points(pts)
 
     def _sync(self):
-        devs = self.mesh.devices if self.mesh is not None else (self.device,)
+        devs = (self.mesh.local_devices if self.mesh is not None
+                else (self.device,))
         for d in dict.fromkeys(devs):
             if d.type == "cuda":
                 torch.cuda.synchronize(d)
@@ -195,19 +205,30 @@ class Prover:
                        b1)
         return At, Bt2, Bt1, Ht, Lt
 
+    def _shared(self, draws):
+        """draws as every shard of the mesh sees them: on a ProcessMesh rank
+        0's (a random value drawn on each process would differ)."""
+        return draws if self.mesh is None else self.mesh.broadcast(draws)
+
+    def _blinds(self, k1: int, k2: int):
+        """The G1 and G2 blinds of scalars k1, k2: ((R1, b1), (R2, b2))."""
+        return (pp.make_blind("g1", self.device, k1),
+                pp.make_blind("g2", self.device, k2))
+
     def prove(self, primary: List[int], aux: List[int],
               r: Optional[int] = None, s: Optional[int] = None) -> Proof:
         self._check_sizes(primary, aux)
-        r = secrets.randbelow(R_MOD) if r is None else r
-        s = secrets.randbelow(R_MOD) if s is None else s
         self.timings = {}
         self.msm_inputs = {}
         t0 = time.perf_counter()
+        r, s, k1, k2 = self._shared((
+            secrets.randbelow(R_MOD) if r is None else r,
+            secrets.randbelow(R_MOD) if s is None else s,
+            pp.blind_scalar(), pp.blind_scalar()))
 
         wires_std = tf.to_tensor(_wire_limbs(primary, aux), self.device)
         wires_mont = pntt.mul_elementwise(wires_std, self._r2)
-        R1, b1 = pp.make_blind("g1", self.device)
-        R2, b2 = pp.make_blind("g2", self.device)
+        (R1, b1), (R2, b2) = self._blinds(k1, k2)
         t0 = self._lap("wires", t0)
 
         H_std = self._qap(wires_mont)
@@ -251,8 +272,9 @@ class Prover:
         self.timings = {"limbs": 0.0}
         self.msm_inputs = {}
         t0 = time.perf_counter()
-        R1, b1 = pp.make_blind("g1", self.device)
-        R2, b2 = pp.make_blind("g2", self.device)
+        rs, ss, k1, k2 = self._shared((rs, ss, pp.blind_scalar(),
+                                       pp.blind_scalar()))
+        (R1, b1), (R2, b2) = self._blinds(k1, k2)
         t0 = self._lap("blinds", t0)
         pool = self._host_pool()
         proofs = []

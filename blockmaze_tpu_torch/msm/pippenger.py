@@ -568,10 +568,15 @@ def msm_stream(curve: str, points, stream, c: int, lanes: int, blind=None):
 # Blinding (host)
 # ---------------------------------------------------------------------------
 
-def make_blind(curve: str, device):
-    """Fresh random blind R = k*G, k from `secrets`. Returns (R host affine,
-    (Rx, Ry) Montgomery int32 tensors on `device`)."""
-    k = secrets.randbelow(R_MOD - 2) + 1
+def blind_scalar() -> int:
+    """A fresh blind's scalar k, 1 <= k < r - 1, from `secrets`."""
+    return secrets.randbelow(R_MOD - 2) + 1
+
+
+def make_blind(curve: str, device, k: int | None = None):
+    """Blind R = k*G, k = blind_scalar() unless given. Returns (R host
+    affine, (Rx, Ry) Montgomery int32 tensors on `device`)."""
+    k = blind_scalar() if k is None else k
     if curve == "g1":
         R = HC.g1_mul(HC.g1_generator(), k)
         X, Y, _ = tc.g1_affine_to_device([R])

@@ -18,17 +18,19 @@ post factor (a K2 product fused into the pass, as a basic domain's coset
 products ride in the single-card FFT), laid out as step 1's output; a
 coset FFT's powers ride as step 1's pre factor, an inverse FFT's 1/m as
 step 4's scale and an inverse coset FFT's coset^-1 as step 4's post, each
-cut to the shard's block in that step's layout (tables_to). Step 3 and
-the gathers around the transform are copies (Tensor.to, torch.cat and
-permute().contiguous()). A sharded FFT takes its input from the lead
-device and returns its output there, as the JAX version all-gathers it.
+cut to the shard's block in that step's layout (tables_to). Step 3 is
+the mesh's all_to_all of equal blocks, and the output is gathered to the
+lead device (mesh.gather), as the JAX version all-gathers it; each shard
+cuts its block of columns from the input on the lead device. On a
+ProcessMesh every process holds the input, and the output, itself.
 At every sharded size of the circuits (m1, m2 <= 2^10 = pntt.FFT_TILE_LOG)
 each step is one pass.
 
 The step domain (m = big_m + small_m, mint and redeem) runs its big and
 its small FFT each through the 4-step decomposition; its elementwise
-stages stay on the lead device, one pntt.step_pre before the forward FFTs
-and one pntt.step_post after the inverse ones, as on a single card.
+stages stay on the lead device (every process's own, on a ProcessMesh),
+one pntt.step_pre before the forward FFTs and one pntt.step_post after
+the inverse ones, as on a single card.
 """
 
 from __future__ import annotations
@@ -146,17 +148,19 @@ def _step4_layout(t, m1: int, m2: int):
 
 
 def _cut(mesh, t):
-    """A host table's rows in blocks, block d on device d, as (rows, 16)."""
+    """A host table's rows in blocks, as (rows, 16): the block of each
+    shard this process computes, on its device."""
     rows = np.asarray(t).reshape(-1, tf.N)
     return [tf.to_tensor(rows[a:b], dev) for (a, b), dev in
-            zip(mesh.blocks(rows.shape[0]), mesh.devices)]
+            mesh.local_blocks(rows.shape[0])]
 
 
 def plan_to(T: dict, mesh) -> dict:
-    """fft_tabs on the mesh: the sub-FFT tables on every device, step 2's
-    twiddles cut to each shard's block of columns."""
+    """fft_tabs on the mesh: for each shard this process computes, the
+    sub-FFT tables on its device and step 2's twiddles cut to its block
+    of columns."""
     shards = []
-    for dev, tw in zip(mesh.devices, _cut(mesh, T["tw"])):
+    for dev, tw in zip(mesh.local_devices, _cut(mesh, T["tw"])):
         S = {k: tf.to_tensor(T[k], dev) for k in ("p1", "t1", "p2", "t2")}
         S["tw"] = tw
         shards.append(S)
@@ -164,19 +168,20 @@ def plan_to(T: dict, mesh) -> dict:
 
 
 def tables_to(T: dict, mesh) -> dict:
-    """sqap_tables on the mesh: each sharded FFT by plan_to; on a basic
-    domain the coset powers cut in step 1's layout, coset^-1 (both forms)
-    in step 4's and 1/m on every device (the factors ride in the sharded
-    FFT's steps), 1/Z on the lead device; on a step domain every pointwise
-    table on the lead device (its stages run there). The lead device's
-    tables are out["lead"]."""
+    """sqap_tables on the mesh, this process's share: each sharded FFT by
+    plan_to; on a basic domain the coset powers cut in step 1's layout,
+    coset^-1 (both forms) in step 4's and 1/m on each shard's device (the
+    factors ride in the sharded FFT's steps), 1/Z on the lead device; on a
+    step domain every pointwise table on the lead device (its stages run
+    there). The lead device's tables are out["lead"]."""
     out = {k: plan_to(v, mesh) for k, v in T.items() if isinstance(v, dict)}
     if "fwd" in T:
         m1, m2 = T["fwd"]["m1"], T["fwd"]["m2"]
         out["coset"] = _cut(mesh, _step1_layout(T["coset"], m1, m2))
         for k in ("coset_inv", "coset_inv_std"):
             out[k] = _cut(mesh, _step4_layout(T[k], m1, m2))
-        out["minv"] = [tf.to_tensor(T["minv"], dev) for dev in mesh.devices]
+        out["minv"] = [tf.to_tensor(T["minv"], dev)
+                       for dev in mesh.local_devices]
         lead = {"zinv": T["zinv"]}
     else:
         lead = {k: v for k, v in T.items() if not isinstance(v, dict)}
@@ -194,34 +199,33 @@ def sharded_fft_t(mesh, m: int, a, plan, pre=None, scale=None, post=None,
     mesh, with plan = plan_to(fft_tabs(m, omega, mesh.size), mesh): the
     (m, 16) result on the lead device (into `out` if given), equal to the
     single-card pntt.fft with the same factors. pre (step 1's layout),
-    scale (one row) and post (step 4's layout) are per-shard lists from
-    tables_to, or None."""
+    scale (one row) and post (step 4's layout) are lists from tables_to
+    (one entry per shard this process computes), or None."""
     n = mesh.size
     m1, m2 = plan["m1"], plan["m2"]
     shards = plan["shards"]
-    none = [None] * n
+    none = [None] * len(shards)
     pre, scale, post = (f if f is not None else none
                         for f in (pre, scale, post))
-    # step 1 (with step 2 as its post factor): column FFTs, row i2 of the
-    # transposed input a column of x
-    xt = a.reshape(m1, m2, tf.N).transpose(0, 1).contiguous()
-    cols = mesh.scatter(xt.reshape(m, tf.N))
-    y = [pntt.fft(x, S["p1"], S["t1"], pre=f, post=S["tw"])
-         for x, S, f in zip(cols, shards, pre)]
+    # step 1 (with step 2 as its post factor): column FFTs, a shard's block
+    # of columns i2 of x transposed, row i2 a column
+    x = a.reshape(m1, m2, tf.N)
+    cols = [x[:, c0:c1].transpose(0, 1).contiguous().reshape(-1, tf.N)
+            .to(dev) for (c0, c1), dev in mesh.local_blocks(m2)]
+    y = [pntt.fft(col, S["p1"], S["t1"], pre=f, post=S["tw"])
+         for col, S, f in zip(cols, shards, pre)]
     # step 3: shard e takes every shard's columns of its k1 block, as
     # (m1 / n, m2) rows k1
     b1, b2 = m1 // n, m2 // n
-    rows = []
-    for e, dev in enumerate(mesh.devices):
-        parts = [yd.reshape(b2, m1, tf.N)[:, e * b1:(e + 1) * b1].to(dev)
-                 for yd in y]
-        rows.append(torch.cat(parts).transpose(0, 1).contiguous()
-                    .reshape(b1 * m2, tf.N))
+    got = mesh.all_to_all([yd.view(b2, n, b1, tf.N).transpose(0, 1)
+                           for yd in y])
+    rows = [t.reshape(m2, b1, tf.N).transpose(0, 1).contiguous()
+            .reshape(b1 * m2, tf.N) for t in got]
     # step 4: row FFTs
     z = [pntt.fft(r, S["p2"], S["t2"], scale=s, post=f)
          for r, S, s, f in zip(rows, shards, scale, post)]
     # X[k1 + m1 * k2] = C[k1, k2]
-    C = torch.cat([t.to(mesh.lead) for t in z]).reshape(m1, m2, tf.N)
+    C = mesh.gather(z).reshape(m1, m2, tf.N)
     if out is None:
         return C.transpose(0, 1).contiguous().reshape(m, tf.N)
     out.view(m2, m1, tf.N).copy_(C.transpose(0, 1))
@@ -297,7 +301,7 @@ def sharded_fft(mesh, domain: BasicDomain, a, inverse: bool = False):
     scale = None
     if inverse:
         minv = tf.to_mont_host(FR, [pow(domain.m, -1, R_MOD)])
-        scale = [tf.to_tensor(minv, dev) for dev in mesh.devices]
+        scale = [tf.to_tensor(minv, dev) for dev in mesh.local_devices]
     return sharded_fft_t(mesh, domain.m, a, plan, scale=scale)
 
 
@@ -338,7 +342,7 @@ def sharded_icoset_fft(mesh, domain, a, g: int):
         minv = tf.to_mont_host(FR, [pow(m, -1, R_MOD)])
         return sharded_fft_t(
             mesh, m, a, plan,
-            scale=[tf.to_tensor(minv, dev) for dev in mesh.devices],
+            scale=[tf.to_tensor(minv, dev) for dev in mesh.local_devices],
             post=_cut(mesh, _step4_layout(coset_inv, plan["m1"],
                                           plan["m2"])))
     return _step_ifft_t(mesh, domain, a,

@@ -6,7 +6,9 @@ The sources in blockmaze_tpu_torch/csrc are compiled at first use with
 into blockmaze_tpu_torch/_build/ (one shared library with a plain C
 interface, named by a hash of the sources, so an edit rebuilds; one nvcc
 process per .cu file, all started together; build(verbose=True) prints
-each file's seconds and ptxas report), and loaded with ctypes. Every
+each file's seconds and ptxas report), and loaded with ctypes. Processes
+that start together (one per card) take turns on a lock file in
+_build/: the first builds, the others wait and load its library. Every
 entry point takes int32/uint8 device pointers and the current stream,
 launches, and returns cudaGetLastError(); a nonzero code raises. A failed
 build or load raises too: there is no fallback.
@@ -19,6 +21,7 @@ through.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -87,7 +90,9 @@ def _nvcc() -> str:
 def build(verbose: bool = False) -> str:
     """Compile csrc/*.cu into _build/ if that exact source set has not been
     built yet; return the library path. The .cu files compile in parallel
-    nvcc processes and link into one shared library."""
+    nvcc processes and link into one shared library, under an exclusive
+    lock on _build/build.lock (released when this process ends, however it
+    ends)."""
     srcs = _sources()
     h = hashlib.sha256()
     for s in srcs:
@@ -98,6 +103,14 @@ def build(verbose: bool = False) -> str:
     if os.path.exists(lib):
         return lib
     os.makedirs(BUILD, exist_ok=True)
+    with open(os.path.join(BUILD, "build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not os.path.exists(lib):     # another process built it meanwhile
+            _compile(srcs, lib, verbose)
+    return lib
+
+
+def _compile(srcs, lib: str, verbose: bool):
     nvcc = _nvcc()
     compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
     with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
@@ -135,7 +148,6 @@ def build(verbose: bool = False) -> str:
         if res.returncode != 0:
             raise BuildError(f"nvcc link failed:\n{res.stderr}")
         os.replace(out_tmp, lib)
-    return lib
 
 
 class _Lib:

@@ -3,8 +3,8 @@ on four.
 
     python3 chip_smoke.py                # every phase; one card is enough
     python3 chip_smoke.py --mesh-only    # build, mint and deposit20 on one
-                                         # card, then phase 7 (for a call
-                                         # on four cards)
+                                         # card, then phases 7 and 8 (for a
+                                         # call on four cards)
 
 Phases, each timed; any failure raises and the script exits nonzero:
   0. build the CUDA kernels from blockmaze_tpu_torch/csrc (nvcc, sm_90a);
@@ -81,7 +81,30 @@ Phases, each timed; any failure raises and the script exits nonzero:
      (1, 2), and one at random (r, s), all verified, their launches
      against MESH_PATH, their phases beside the single-card steady
      proof's; one mint prove_batch of B = 2 on the mesh, each proof
-     verified. A `mesh summary:` line holds phase 7's numbers.
+     verified. A `mesh summary:` line holds phase 7's numbers;
+  8. the process mesh (parallel.distributed, parallel.mesh.ProcessMesh):
+     the largest power of two at most min(PROCESS_RANKS = 4, cards)
+     processes (every padded size splits evenly over them), one a card,
+     over nccl when two or more cards are visible, else 2 processes on
+     cuda:0 over gloo
+     (the placement, the backend and torch.cuda.device_count() are
+     printed). Each rank is this script started again with an internal
+     flag (RANK_FLAG), joins the group through distributed.initialize and
+     runs on distributed.global_mesh(): sharded_msm over the ranks on
+     phase 2's 2^18 G1 points against the closed form, with and without a
+     blind (ms, Mpoints/s and t1 / (k tk) against the single-card MSM of
+     the same call, which rank 0 times alone); the sharded FFT, inverse,
+     coset FFT and inverse coset FFT (std) at basic 2^20 and at mint's
+     step domain against tntt on the rank's card, timed beside it; a
+     Prover(mesh=global_mesh()) over mint's and deposit20's cached keys
+     (no keygen and no synthesis in a rank: the parent writes the
+     witnesses and its single-card proofs to a temporary directory): two
+     proofs at (1, 2) equal to the single-card proof, one at random (r,
+     s) equal on every rank and verified, the launches per rank against
+     process_mesh_path(k), the phases and torch.cuda.max_memory_allocated
+     after the Prover's init beside the single-card Prover's. A rank that
+     exits nonzero or overruns RANK_TIMEOUT fails the script. A `process
+     mesh summary:` line holds phase 8's numbers.
 Each circuit's launch counts are reset just before its keygen and read
 just after it, and reset again just before its three proofs and read just
 after them; phase 5 reads them around each transaction and phase 6 around
@@ -107,9 +130,13 @@ kind (MESH_PATH, per proof of a 4-shard Prover): the single-card path's
 kernels, each fft launch a shard's batch of column or row FFTs (at most
 112 on the step domain, 56 on a basic one), qap_matvec once a shard, and
 add, the K3 kernel, folding each MSM's partials (at most 5 x 3 a proof);
-never butterfly, double, the mixed adds or fixed_base_exp. A kernel's
-launches in the kernel table are its sum over every path of every
-circuit, phase 7's included. Each
+never butterfly, double, the mixed adds or fixed_base_exp. The process
+mesh's path per rank (process_mesh_path(k), per proof): at most two fft
+launches a transform, one qap_matvec, 5 (k - 1) add, never the same
+kernels; the MSM kernels over the ranks together (a rank whose block of
+every query is padding launches none). A kernel's launches in the
+kernel table are its sum over every path of every circuit, phases 7's
+and 8's (every rank's) included. Each
 circuit prints a summary line (sizes, MSM shapes, keygen, Prover and
 proof times). The second-to-last line is the kernel table as JSON (not
 printed with --mesh-only); the last line is the result JSON. With no GPU
@@ -142,9 +169,12 @@ import functools
 import hashlib
 import json
 import os
+import pickle
 import random
+import socket
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -240,8 +270,41 @@ MESH_PATH = {
                           (["qap_combine"], 1),
                           (["add"], 5 * (MESH_SHARDS - 1))]},
 }
-# run_circuit's single-card results of MESH_CIRCUITS, for phase 7:
-# name -> (prover, vk, primary, aux, proof at (1, 2), proof timings)
+# Phase 8: at most PROCESS_RANKS processes, one a card (two on one card
+# when only one is visible), each started as `chip_smoke.py RANK_FLAG
+# <work dir> <device>` and given RANK_TIMEOUT seconds.
+PROCESS_RANKS = 4
+RANK_FLAG = "--process-mesh-rank"
+RANK_TIMEOUT = 480
+
+
+def process_mesh_path(ranks: int) -> dict:
+    """The process mesh's prove path by domain kind, per rank and proof:
+    two fft launches a transform (the rank's column batch, its row
+    batch), one qap_matvec (its block of rows), the step domain's stages
+    and qap_combine on every rank, each MSM's partials folded with ranks
+    - 1 point adds; never the kernels off MESH_PATH. The MSM kernels are
+    not required of a rank: one whose block of every MSM is padding (the
+    last of four on mint, whose queries fill 3/4 of 2^18 rows) launches
+    none; phase 8 requires them of the ranks together."""
+    return {
+        "step": {"launch": ["fft", "mul_elementwise", *QAP_KERNELS, "add"],
+                 "never": MESH_NEVER,
+                 "at_most": [(["fft"], 28), (["mul_elementwise"], 1),
+                             (["qap_matvec"], 1),
+                             (["step_pre", "step_post", "qap_combine"], 8),
+                             (["add"], 5 * (ranks - 1))]},
+        "basic": {"launch": ["fft", "mul_elementwise", "qap_matvec",
+                             "qap_combine", "add"],
+                  "never": MESH_NEVER + ["step_pre", "step_post"],
+                  "at_most": [(["fft"], 14), (["mul_elementwise"], 1),
+                              (["qap_matvec"], 1), (["qap_combine"], 1),
+                              (["add"], 5 * (ranks - 1))]}}
+
+
+# run_circuit's single-card results of MESH_CIRCUITS, for phases 7 and 8:
+# name -> (prover, vk, primary, aux, proof at (1, 2), proof timings,
+# the Prover's device memory: {"allocated_mb", "peak_mb"})
 RUNS = {}
 ROW = 64               # bytes of one Fr element (16 int32 limbs)
 
@@ -326,8 +389,14 @@ def main():
 
     # ---- phase 7: the mesh -----------------------------------------------
     t0 = time.perf_counter()
-    path_counts += phase7(dev, rng, report)
+    counts7, summary7 = phase7(dev, rng, report)
+    path_counts += counts7
     log(f"phase 7 mesh: {time.perf_counter() - t0:.1f}s")
+
+    # ---- phase 8: the process mesh ---------------------------------------
+    t0 = time.perf_counter()
+    path_counts += phase8(summary7)
+    log(f"phase 8 process mesh: {time.perf_counter() - t0:.1f}s")
     for name in kn.K:
         report[name]["launches"] = sum(c.get(name, 0) for c in path_counts)
     log(f"total: {time.perf_counter() - t_all:.1f}s")
@@ -931,6 +1000,15 @@ def check_prove_counts(kind, counts, proofs, path=None):
                                f"{most}")
 
 
+def prover_memory(dev, before: int) -> dict:
+    """A Prover's device memory, MB: what its init left allocated beyond
+    `before`, and the peak since the last reset_peak_memory_stats."""
+    return {"allocated_mb": round((torch.cuda.memory_allocated(dev) - before)
+                                  / 2**20, 1),
+            "peak_mb": round(torch.cuda.max_memory_allocated(dev) / 2**20,
+                             1)}
+
+
 def domain_kind(domain) -> str:
     from blockmaze_tpu_torch.ntt.domain import BasicDomain
     return "basic" if isinstance(domain, BasicDomain) else "step"
@@ -976,8 +1054,12 @@ def run_circuit(name, dev):
     primary, aux = pb.primary_input(), pb.auxiliary_input()
     del pb
     t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
     prover = Prover(dpk, dev)
     torch.cuda.synchronize()
+    mem = prover_memory(dev, before)
     kind = domain_kind(prover.domain)
     summary.update(prover_init_s=round(time.perf_counter() - t0, 1),
                    m=prover.domain.m, domain=kind, nA=prover.nA,
@@ -1014,7 +1096,7 @@ def run_circuit(name, dev):
         raise AssertionError(f"{name}: two proofs with equal (r, s) differ")
     log("  proofs 0 and 1 (equal r, s; fresh blinds) equal: True")
     if name in MESH_CIRCUITS:
-        RUNS[name] = (prover, vk, primary, aux, proofs[0], times[1])
+        RUNS[name] = (prover, vk, primary, aux, proofs[0], times[1], mem)
     matrix_stats(name, prover)
     summary["live"] = digit_stats(prover)
     log(f"  circuit summary: {json.dumps(summary)}")
@@ -1955,7 +2037,7 @@ def mesh_prove(name, mesh, summary):
     from blockmaze_tpu_torch.groth16 import verifier
     from blockmaze_tpu_torch.groth16.prover import Prover
     from blockmaze_tpu_torch.utils import kernels as kn
-    prover1, vk, primary, aux, want, single = RUNS[name]
+    prover1, vk, primary, aux, want, single = RUNS[name][:6]
     t0 = time.perf_counter()
     prover = Prover(prover1.dpk, mesh=mesh)
     sync_all(mesh.devices)
@@ -2026,7 +2108,8 @@ def mesh_batch(prover, summary):
 
 
 def phase7(dev, rng, report):
-    """The mesh (docstring, phase 7). Returns the mesh paths' launches."""
+    """The mesh (docstring, phase 7). Returns (the mesh paths' launches,
+    the `mesh summary` dict)."""
     mesh = make_phase7_mesh(dev)
     summary = {"shards": mesh.size,
                "devices": [str(d) for d in mesh.devices],
@@ -2042,8 +2125,329 @@ def phase7(dev, rng, report):
         if name == "mint":
             path_counts += mesh_batch(prover, summary)
     log(f"  mesh summary: {json.dumps(summary)}")
-    return path_counts
+    return path_counts, summary
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the process mesh (parallel.distributed, ProcessMesh)
+# ---------------------------------------------------------------------------
+
+def process_placement():
+    """(devices, the backend initialize must choose): with two or more
+    cards, ranks one a card over nccl, as many as the largest power of two
+    at most min(PROCESS_RANKS, cards) (the padded sizes split evenly only
+    over a power of two); else two ranks on cuda:0 over gloo (nccl refuses
+    two processes on one card)."""
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        ranks = 1 << (min(PROCESS_RANKS, cards).bit_length() - 1)
+        return [f"cuda:{i}" for i in range(ranks)], "nccl"
+    return ["cuda:0", "cuda:0"], "gloo"
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(work, devices):
+    """Start one process per device (this script with RANK_FLAG) and wait
+    for all; any rank that exits nonzero, or the RANK_TIMEOUT, stops
+    every rank and fails. Prints each rank's log; returns their result
+    dicts in rank order."""
+    port = free_port()
+    procs = []
+    try:
+        for r, d in enumerate(devices):
+            out = open(os.path.join(work, f"rank{r}.log"), "w")
+            procs.append((out, subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), RANK_FLAG, work,
+                 d], stdout=out, stderr=subprocess.STDOUT,
+                env={**os.environ, "MASTER_ADDR": "127.0.0.1",
+                     "MASTER_PORT": str(port),
+                     "WORLD_SIZE": str(len(devices)), "RANK": str(r),
+                     "LOCAL_RANK": str(r)})))
+        t0 = time.perf_counter()
+        while True:
+            rcs = [p.poll() for _, p in procs]
+            if all(rc == 0 for rc in rcs) or any(rc not in (None, 0)
+                                                 for rc in rcs):
+                break
+            if time.perf_counter() - t0 > RANK_TIMEOUT:
+                rcs = ["timeout" if rc is None else rc for rc in rcs]
+                break
+            time.sleep(0.2)
+    finally:
+        for out, p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+            out.close()
+    for r in range(len(procs)):
+        with open(os.path.join(work, f"rank{r}.log")) as f:
+            for line in f:
+                log(f"  [rank {r}] {line.rstrip()}")
+    if any(rc != 0 for rc in rcs):
+        raise RuntimeError(f"process mesh ranks exited {rcs}")
+    outs = []
+    for r in range(len(procs)):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            outs.append(json.load(f))
+    return outs
+
+
+def phase8(summary7):
+    """The process mesh (docstring, phase 8): the parent's half. Returns
+    every rank's launches on its main path."""
+    from blockmaze_tpu_torch.utils import kernels as kn
+    devices, backend = process_placement()
+    log(f"  torch.cuda.device_count() = {torch.cuda.device_count()}; "
+        f"{len(devices)} ranks on {devices}, backend {backend}")
+    with tempfile.TemporaryDirectory() as work:
+        pts = curve_points("g1", 1 << 18, torch.device("cuda:0"))
+        np.savez(os.path.join(work, "points.npz"),
+                 *(t.cpu().numpy() for t in pts))
+        for name in MESH_CIRCUITS:
+            _, _, primary, aux, proof, _, _ = RUNS[name]
+            with open(os.path.join(work, f"{name}.pkl"), "wb") as f:
+                pickle.dump((primary, aux, (proof.a, proof.b, proof.c)), f)
+        t0 = time.perf_counter()
+        outs = run_ranks(work, devices)
+        log(f"  {len(devices)} ranks: {time.perf_counter() - t0:.1f}s")
+    for r, out in enumerate(outs):
+        if out["backend"] != backend or out["devices"] != devices:
+            raise AssertionError(f"rank {r}: backend {out['backend']} on "
+                                 f"{out['devices']}, not {backend} on "
+                                 f"{devices}")
+    for name in MESH_CIRCUITS:
+        if len({json.dumps(o[name]["random_proof"]) for o in outs}) != 1:
+            raise AssertionError(f"{name}: the ranks' random-(r, s) proofs "
+                                 f"differ")
+        check_launches(f"{name} process mesh path, every rank", {
+            k: sum(o[name]["launches"][k] for o in outs) for k in kn.K},
+            MSM_KERNELS)
+    summary = {"ranks": len(devices), "devices": devices,
+               "backend": backend,
+               "device_count": torch.cuda.device_count(), "rank0": {
+                   k: v for k, v in outs[0].items() if k not in MESH_CIRCUITS},
+               "proofs": {}}
+    for name in MESH_CIRCUITS:
+        single = RUNS[name]
+        summary["proofs"][name] = {
+            "single_steady": single[5], "single_prover_mem": single[6],
+            "mesh7_steady": summary7[name]["mesh_proofs"][1],
+            "ranks": [{k: o[name][k] for k in ("init_s", "mem", "proofs")}
+                      for o in outs]}
+        log(f"  {name}: steady proof single card {json.dumps(single[5])}; "
+            f"phase 7 mesh {json.dumps(summary7[name]['mesh_proofs'][1])}; "
+            f"process mesh rank 0 {json.dumps(outs[0][name]['proofs'][1])}"
+            f"; Prover memory single {json.dumps(single[6])}, a rank "
+            f"{json.dumps(outs[0][name]['mem'])}")
+    log(f"  process mesh summary: {json.dumps(summary)}")
+    return [o[name]["launches"] for o in outs for name in MESH_CIRCUITS]
+
+
+def rank_log(rank, *a):
+    log(f"{time.strftime('%H:%M:%S')} rank {rank}:", *a)
+
+
+def timed_alone(mesh, fn, reps):
+    """fn's ms (wall_ms on this rank's card) on rank 0 while the other
+    ranks wait, broadcast to every rank: the single-card yardstick, with
+    the card to itself when ranks share one."""
+    import torch.distributed as dist
+    dist.barrier()
+    ms = wall_ms(fn, [mesh.local], reps) if mesh.rank == 0 else None
+    dist.barrier()
+    return mesh.broadcast(ms)
+
+
+def timed_together(mesh, fn, reps):
+    import torch.distributed as dist
+    dist.barrier()
+    return wall_ms(fn, [mesh.local], reps)
+
+
+def rank_msm(mesh, work, out):
+    """sharded_msm over the ranks on phase 2's 2^18 G1 points against the
+    closed form, with and without a blind, timed beside rank 0's
+    single-card MSM."""
+    from blockmaze_tpu_torch.curves import host_curve as HC
+    from blockmaze_tpu_torch.curves import tcurve as tc
+    from blockmaze_tpu_torch.fields import tfield as tf
+    from blockmaze_tpu_torch.fields.constants import R_MOD
+    from blockmaze_tpu_torch.msm import pippenger as pp
+    from blockmaze_tpu_torch.parallel import mesh as pm
+    dev, k, n = mesh.local, mesh.size, 1 << 18
+    with np.load(os.path.join(work, "points.npz")) as z:
+        pts = tuple(torch.from_numpy(z[f"arr_{i}"]).to(dev)
+                    for i in range(3))
+    py = random.Random(SEED)
+    ks = [py.randrange(R_MOD) for _ in range(n)]
+    sc = tf.to_tensor(tf.ints_to_limbs(ks), dev)
+    want = HC.g1_mul(HC.g1_generator(),
+                     sum((i + 1) * ki for i, ki in enumerate(ks)) % R_MOD)
+    c = pp.default_window(n)
+    shards = mesh.shard_points(pts)
+    rows = []
+    for blinded in (False, True):
+        R, blind = ((pp.make_blind("g1", dev,
+                                   mesh.broadcast(pp.blind_scalar())))
+                    if blinded else (None, None))
+        t1 = timed_alone(mesh, lambda: pp.msm("g1", pts, sc, c,
+                                              pp.MAX_LANES, blind=blind), 3)
+
+        def run():
+            return pm.sharded_msm(mesh, "g1", shards, sc, c, pp.MAX_LANES,
+                                  blind=blind)
+
+        res = run()
+        got = tc.g1_jacobian_to_host(tuple(v[None] for v in res[:3]))[0]
+        if blinded:
+            got = pp.unblind_msm("g1", got, res[3].cpu().numpy(), R, c)
+        if got != want:
+            raise AssertionError(f"sharded_msm over {k} ranks != closed "
+                                 f"form")
+        ms = timed_together(mesh, run, 3)
+        row = {"blinded": blinded, "single_ms": round(t1, 3),
+               "ms": round(ms, 3), "mpoints_s": round(n / ms / 1e3, 2),
+               "efficiency": round(t1 / (k * ms), 3)}
+        rank_log(mesh.rank, f"sharded_msm G1 2^18 c={c} over {k} ranks "
+                 f"equals (sum i*k_i)*G: True; {json.dumps(row)}")
+        rows.append(row)
+    out["msm"] = rows
+
+
+def rank_fft(mesh, out):
+    """The sharded FFT, inverse, coset FFT and inverse coset FFT (std) over
+    the ranks at basic 2^20 and mint's step domain, each equal to tntt's
+    on this rank's card, timed beside rank 0's single-card one."""
+    from blockmaze_tpu_torch.ntt import domain as TD
+    from blockmaze_tpu_torch.ntt import tntt
+    from blockmaze_tpu_torch.parallel import sntt
+    rng = np.random.default_rng(SEED + 8)
+    rows = []
+    for d in (TD.get_evaluation_domain(1 << 20),
+              TD.get_evaluation_domain((1 << 17) + (1 << 16))):
+        dev = mesh.local
+        T1 = tntt.tables_to({**tntt.qap_tables(d), **tntt.std_tables(d)},
+                            dev)
+        TS = sntt.tables_to(sntt.sqap_tables(d, mesh.size), mesh)
+        a = rand_field(rng, (d.m,), dev)
+        for op, one, sharded in (
+                ("fft", lambda: tntt.fft_t(d, a, T1),
+                 lambda: sntt.s_fft_t(mesh, d, a, TS)),
+                ("ifft", lambda: tntt.ifft_t(d, a, T1),
+                 lambda: sntt.s_ifft_t(mesh, d, a, TS)),
+                ("coset_fft", lambda: tntt.coset_fft_t(d, a, T1),
+                 lambda: sntt.s_coset_fft_t(mesh, d, a, TS)),
+                ("icoset_fft std", lambda: tntt.icoset_fft_t(d, a, T1, True),
+                 lambda: sntt.s_icoset_fft_t(mesh, d, a, TS, True))):
+            label = f"m={d.m} {domain_kind(d)} {op}"
+            if not torch.equal(one(), sharded()):
+                raise AssertionError(f"sharded {label} over the ranks != "
+                                     f"single card")
+            ms1 = timed_alone(mesh, one, 10)
+            msn = timed_together(mesh, sharded, 10)
+            rank_log(mesh.rank, f"sharded {label} equal to single card: "
+                     f"True; single {ms1:.4f} ms, {mesh.size} ranks "
+                     f"{msn:.4f} ms")
+            rows.append({"op": label, "single_ms": round(ms1, 4),
+                         "ranks_ms": round(msn, 4)})
+    out["fft"] = rows
+
+
+def rank_prove(name, mesh, work):
+    """Prover(mesh=global_mesh()) over circuit `name`'s cached keys: two
+    proofs at (1, 2) equal to the parent's single-card proof, one at
+    random (r, s), verified; the launches per proof against
+    process_mesh_path; the Prover's device memory."""
+    import torch.distributed as dist
+    from blockmaze_tpu_torch.groth16 import keys as K
+    from blockmaze_tpu_torch.groth16 import verifier
+    from blockmaze_tpu_torch.groth16.prover import Prover
+    from blockmaze_tpu_torch.parallel import distributed
+    from blockmaze_tpu_torch.serialization import libsnark_io as io
+    from blockmaze_tpu_torch.utils import kernels as kn
+    base = os.path.join(key_cache(), f"{name}_s{SEED}")
+    dpk = K.load_device_pk(f"{base}.v{K.CACHE_VERSION}.npz")
+    vk = io.load_verification_key(f"{base}_vk.txt")
+    with open(os.path.join(work, f"{name}.pkl"), "rb") as f:
+        primary, aux, want = pickle.load(f)
+    dev = mesh.local
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    prover = Prover(dpk, mesh=distributed.global_mesh())
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    mem = prover_memory(dev, before)
+    kind = domain_kind(prover.domain)
+    rank_log(mesh.rank, f"{name}: Prover {init_s:.2f}s (sharded QAP: "
+             f"{prover.sharded_qap}; points nA/k={prover.nA // mesh.size}, "
+             f"nH/k={prover.nH // mesh.size}); memory {json.dumps(mem)}")
+    proofs, times = [], []
+    dist.barrier()
+    kn.reset_counts()
+    for i, (r, s) in enumerate(((1, 2), (1, 2), (None, None))):
+        t0 = time.perf_counter()
+        proofs.append(prover.prove(primary, aux, r=r, s=s))
+        dt = time.perf_counter() - t0
+        times.append({"s": round(dt, 4),
+                      **{k: round(v, 4) for k, v in prover.timings.items()}})
+        rank_log(mesh.rank, f"{name} prove {i}: {json.dumps(times[-1])}")
+    torch.cuda.synchronize(dev)
+    counts = kn.counts()
+    check_prove_counts(kind, counts, len(proofs),
+                       process_mesh_path(mesh.size))
+    for i in (0, 1):
+        if (proofs[i].a, proofs[i].b, proofs[i].c) != tuple(want):
+            raise AssertionError(f"{name} process mesh proof {i} != "
+                                 f"single-card proof at (1, 2)")
+    if not verifier.verify(vk, primary, proofs[2]):
+        raise AssertionError(f"{name} process mesh random proof rejected")
+    rank_log(mesh.rank, f"{name}: proofs 0 and 1 equal the single-card "
+             f"proof at (1, 2); the random one verified")
+    del prover
+    torch.cuda.empty_cache()
+    return {"domain": kind, "init_s": round(init_s, 3), "mem": mem,
+            "proofs": times, "launches": counts,
+            "random_proof": [str(v) for v in (proofs[2].a, proofs[2].b,
+                                              proofs[2].c)]}
+
+
+def process_mesh_rank(work, device):
+    """One rank of phase 8: join the group on `device`, run every check on
+    global_mesh() and write <work>/rank<i>.json."""
+    require_gpu()
+    import torch.distributed as dist
+    from blockmaze_tpu_torch.parallel import distributed
+    from blockmaze_tpu_torch.utils import kernels as kn
+    t0 = time.perf_counter()
+    if not distributed.initialize(device=device):
+        raise RuntimeError("process mesh rank: no group to join")
+    mesh = distributed.global_mesh()
+    kn.LIB.get()
+    rank_log(mesh.rank, f"{mesh!r}, backend {mesh.backend}, this rank on "
+             f"{mesh.local} ({torch.cuda.get_device_name(mesh.local)}); "
+             f"joined in {time.perf_counter() - t0:.1f}s")
+    out = {"rank": mesh.rank, "backend": mesh.backend,
+           "devices": [str(d) for d in mesh.devices]}
+    rank_msm(mesh, work, out)
+    rank_fft(mesh, out)
+    for name in MESH_CIRCUITS:
+        out[name] = rank_prove(name, mesh, work)
+    out["seconds"] = round(time.perf_counter() - t0, 1)
+    with open(os.path.join(work, f"rank{mesh.rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == [RANK_FLAG]:
+        process_mesh_rank(*sys.argv[2:4])
+    else:
+        main()
