@@ -1,5 +1,6 @@
 """Proving key in the tensor form the prover consumes, its v1 npz cache,
-and the move onto a torch device.
+its load from the reference's text file, and the move onto a torch
+device.
 
 Port of blockmaze_tpu/groth16/keys.py. The npz format is the JAX
 package's (CACHE_VERSION 1), so a key written by either package loads in
@@ -7,21 +8,29 @@ the other. Arrays are numpy on the host (uint32 16-bit limbs, Montgomery
 form); to_device carries any object with DevicePK's fields - this
 package's or the JAX package's - onto a device as int32 tensors, with the
 three COO constraint matrices turned into the one CSR matrix the QAP's
-matvec kernel takes (build_csr).
+matvec kernel takes (build_csr). load_text_pk reads a libsnark-format
+text key through the host tokenizer (serialization/native_io.py) and
+decompresses its points on the device (curves/decompress.py); the Python
+reader (build_device_pk(io.load_proving_key(path))) stays as the
+reference the tests hold it against.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import time
 
 import numpy as np
 import torch
 
+from ..curves import decompress as dc
 from ..curves import tcurve as tc
 from ..fields import tfield as tf
 from ..ntt import domain as D
+from ..ntt import pntt
 from ..serialization import libsnark_io as io
+from ..serialization import native_io
 
 CACHE_VERSION = 1
 
@@ -173,11 +182,76 @@ def load_device_pk(path: str) -> DevicePK:
     return DevicePK(**kw)
 
 
-def load_or_build(pk_txt_path: str, cache_dir: str | None = None) -> DevicePK:
+def load_text_pk(pk_txt_path: str, device="cuda", timings=None) -> DevicePK:
+    """The DevicePK of a libsnark-format text proving key, the one
+    build_device_pk(io.load_proving_key(path)) gives, array for array: the
+    host tokenizer turns the text into limbs, one decompress_g1 launch
+    finds every G1 point's y (A, B, H, L together) and one decompress_g2
+    every G2 point's, and one mul_elementwise by the R^2 row puts the
+    coefficients in Montgomery form (as generator._coo_arrays does), on
+    `device` ("cpu": the kernels' plain versions). Raises ValueError on a
+    malformed or truncated file or a point off its curve. timings, if
+    given, gains seconds by phase: tokenize, upload (the limbs to the
+    device), decompress and coeffs (each up to its arrays back on the
+    host), build."""
+    def lap(key, t0):
+        if timings is not None:
+            timings[key] = timings.get(key, 0.0) + time.perf_counter() - t0
+        return time.perf_counter()
+
+    device = torch.device(device)
+    t0 = time.perf_counter()
+    tk = native_io.parse_pk_text(pk_txt_path)
+    t0 = lap("tokenize", t0)
+    g1 = [tf.to_tensor(a, device) for a in (tk.g1.x, tk.g1.lsb, tk.g1.zero)]
+    g2 = [tf.to_tensor(a, device) for a in (tk.g2.x, tk.g2.lsb, tk.g2.zero)]
+    coeffs = tf.to_tensor(tk.coeffs, device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t0 = lap("upload", t0)
+    names = list(tk.g1_counts.items())
+    g1_pts = [t.cpu().numpy() for t in dc.decompress("g1", *g1, names)]
+    g2_pts = [t.cpu().numpy() for t in dc.decompress("g2", *g2,
+                                                      [("B", len(tk.g2.lsb))])]
+    t0 = lap("decompress", t0)
+    mont = pntt.mul_elementwise(coeffs, tf.to_tensor(tf.FR.r2_limbs[None],
+                                                     device))
+    mont = mont.cpu().numpy().view(np.uint32)
+    t0 = lap("coeffs", t0)
+    queries, off = {}, 0
+    for name, count in names:
+        x, y, inf = (a[off:off + count] for a in g1_pts)
+        queries[name] = (x.view(np.uint32), y.view(np.uint32), inf)
+        off += count
+    x, y, inf = g2_pts
+    queries["B2"] = (x.view(np.uint32), y.view(np.uint32), inf)
+    coo, off = {}, 0
+    for k in "abc":
+        n = tk.nnz[k]
+        coo.update({f"{k}_row": tk.rows[off:off + n],
+                    f"{k}_var": tk.vars[off:off + n],
+                    f"{k}_coeff": mont[off:off + n]})
+        off += n
+    dpk = DevicePK(
+        primary_input_size=tk.primary_input_size,
+        aux_input_size=tk.aux_input_size,
+        num_constraints=tk.num_constraints,
+        domain_size=D.get_evaluation_domain(
+            tk.num_constraints + tk.primary_input_size + 1).m,
+        alpha_g1=tk.alpha_g1, beta_g1=tk.beta_g1, beta_g2=tk.beta_g2,
+        delta_g1=tk.delta_g1, delta_g2=tk.delta_g2,
+        B_idx=tk.B_idx, **queries, **coo)
+    lap("build", t0)
+    return dpk
+
+
+def load_or_build(pk_txt_path: str, cache_dir: str | None = None,
+                  device="cuda", timings=None) -> DevicePK:
     """The DevicePK of a libsnark-format proving key: its npz cache next to
     the text file (<base>.v1.npz, also found when the text file is absent)
-    unless the text file is newer; on a miss the Python parser builds it and
-    writes the cache."""
+    unless the text file is newer; on a miss load_text_pk reads the text
+    on `device` (timings as there, and "write" for the cache) and the
+    cache is written (the npz the Python reader's DevicePK would give)."""
     cache_dir = cache_dir or os.path.dirname(pk_txt_path)
     base = os.path.splitext(os.path.basename(pk_txt_path))[0]
     cache = os.path.join(cache_dir, base + f".v{CACHE_VERSION}.npz")
@@ -185,8 +259,11 @@ def load_or_build(pk_txt_path: str, cache_dir: str | None = None) -> DevicePK:
             not os.path.exists(pk_txt_path)
             or os.path.getmtime(cache) >= os.path.getmtime(pk_txt_path)):
         return load_device_pk(cache)
-    dpk = build_device_pk(io.load_proving_key(pk_txt_path))
+    dpk = load_text_pk(pk_txt_path, device, timings)
+    t0 = time.perf_counter()
     save_device_pk(dpk, cache)
+    if timings is not None:
+        timings["write"] = time.perf_counter() - t0
     return dpk
 
 

@@ -134,7 +134,10 @@ def mul_elementwise(a, b):
     per row. b is (n, 16) or a single (1, 16) / (16,) row broadcast to
     every row of a."""
     if kn.on_cpu(a, b):
-        return mul_elementwise_plain(a, b)
+        if b.dim() == 2 and b.shape[0] == a.shape[0]:
+            return kn.plain_by_rows(mul_elementwise_plain, a, b)
+        return kn.plain_by_rows(lambda rows: mul_elementwise_plain(rows, b),
+                                a)
     n = a.shape[0]
     b2 = b.reshape(-1, tf.N)
     if a.shape != (n, tf.N) or b2.shape[0] not in (1, n):

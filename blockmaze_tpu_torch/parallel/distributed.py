@@ -6,7 +6,9 @@ Every process starts the same program and initialize() joins the group,
 one process per device. The arguments default from the variables a
 launcher such as torchrun sets: MASTER_ADDR and MASTER_PORT (the
 coordinator, host:port), WORLD_SIZE (the number of processes), RANK (this
-process's id) and LOCAL_RANK (its index on its host, default RANK); for
+process's id) and LOCAL_RANK (its index on its host; when it is unset the
+processes exchange their hostnames through the rendezvous store and each
+takes the number of lower ranks on its own host, local_indices); for
 example, one process per card of a four-card host:
 
     torchrun --nproc-per-node 4 my_prover.py
@@ -16,8 +18,9 @@ or, by hand, on each of N processes:
     MASTER_ADDR=host0 MASTER_PORT=29500 WORLD_SIZE=N RANK=$RANK \\
         LOCAL_RANK=$LOCAL_RANK python my_prover.py
 
-Each process drives one device, cuda:LOCAL_RANK by default (the CPU on a
-machine without cards), or the one passed as device=; the processes
+Each process drives one device, cuda:LOCAL_RANK by default, or the one
+passed as device= (device="cpu" runs on the CPU; without a card and
+without it, initialize raises); the processes
 exchange their placement before the group exists, and the backend
 follows from it: nccl when every process of a host has a card of its
 own, gloo when processes share a card or run on the CPU (nccl refuses
@@ -61,6 +64,29 @@ def choose_backend(placement) -> str:
         else "gloo"
 
 
+def local_indices(hosts) -> list:
+    """Each process's index on its host, from every process's hostname in
+    rank order: the number of lower ranks on the same host (["a", "a",
+    "b", "b"] -> [0, 1, 0, 1])."""
+    seen = {}
+    out = []
+    for h in hosts:
+        out.append(seen.get(h, 0))
+        seen[h] = out[-1] + 1
+    return out
+
+
+def _exchange(store, key: str, value: str, num_processes: int,
+              process_id: int) -> list:
+    """Every process's `value` in rank order, through the store under the
+    prefix `key`."""
+    view = dist.PrefixStore(key, store)
+    view.set(str(process_id), value)
+    keys = [str(r) for r in range(num_processes)]
+    view.wait(keys)
+    return [view.get(k).decode() for k in keys]
+
+
 def _store(host: str, port: int, num_processes: int, process_id: int):
     """The group's key-value store: torchrun's agent's (a client of it,
     under this launch attempt's prefix) when its workers are told to use
@@ -78,8 +104,10 @@ def initialize(coordinator: str | None = None,
                num_processes: int | None = None,
                process_id: int | None = None, device=None) -> bool:
     """Join the process group at coordinator ("host:port") on `device`
-    (default cuda:LOCAL_RANK, or the CPU without cards), with the backend
-    choose_backend picks from every process's placement. Returns True
+    (default cuda:<local index>: LOCAL_RANK, or local_indices of every
+    process's hostname when it is unset; "cpu" only when passed), with
+    the backend choose_backend picks from every process's placement.
+    Raises when no card is visible and device is not "cpu". Returns True
     when a multi-process group was joined (or had been), False for the
     single-process no-op."""
     global _device
@@ -92,22 +120,24 @@ def initialize(coordinator: str | None = None,
         return False
     if dist.is_initialized():
         return True
-    local_rank = int(os.environ.get("LOCAL_RANK", process_id))
-    if device is None:
-        device = (torch.device("cuda", local_rank)
-                  if torch.cuda.is_available() else torch.device("cpu"))
-    device = torch.device(device)
-    if device.type == "cuda":
-        if device.index is None:
-            device = torch.device("cuda", local_rank)
-        torch.cuda.set_device(device)
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("distributed.initialize: no CUDA device is "
+                           "visible; pass device=\"cpu\" to join on the CPU")
     host, port = coordinator.rsplit(":", 1)
     store = _store(host, int(port), num_processes, process_id)
-    seen = dist.PrefixStore("placement", store)
-    seen.set(str(process_id), f"{socket.gethostname()} {device}")
-    keys = [str(r) for r in range(num_processes)]
-    seen.wait(keys)
-    placement = [seen.get(k).decode() for k in keys]
+    if device.type == "cuda" and device.index is None:
+        local = os.environ.get("LOCAL_RANK")
+        if local is None:
+            hosts = _exchange(store, "host", socket.gethostname(),
+                              num_processes, process_id)
+            local = local_indices(hosts)[process_id]
+        device = torch.device("cuda", int(local))
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    placement = _exchange(store, "placement",
+                          f"{socket.gethostname()} {device}", num_processes,
+                          process_id)
     dist.init_process_group(choose_backend(placement),
                             store=store, world_size=num_processes,
                             rank=process_id)

@@ -16,6 +16,11 @@ build or load raises too: there is no fallback.
 Each kernel has a `Kernel` object whose `launches` count goes up by one
 each time its wrapper launches it, so a run can show which kernels it went
 through.
+
+Host code in csrc/*.cpp (the key-text tokenizer, keyparse.cpp) builds
+the same way at first use, with g++, the host compiler nvcc itself
+calls, into its own library in _build/ (host_library); the CPU tests
+build and run the very same file.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ CSRC = os.path.join(PKG, "csrc")
 BUILD = os.path.join(PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
+HOST_FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC"]
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
@@ -64,6 +70,7 @@ SIGNATURES = {
                        + [_P],
     "bm_msm_fold": [_I, _P, _P, _P, _I, _I, _P, _P, _P, _P],
     "bm_fixed_base_exp": [_I] + [_P] * 8 + [_LL, _P],
+    "bm_decompress": [_I] + [_P] * 7 + [_LL, _P],
 }
 
 
@@ -87,6 +94,54 @@ def _nvcc() -> str:
     return found
 
 
+def _hashed_path(prefix: str, srcs, flags) -> str:
+    """_build/<prefix>_<hash of the sources' names and bytes and the
+    flags>.so"""
+    h = hashlib.sha256()
+    for s in srcs:
+        with open(s, "rb") as f:
+            h.update(os.path.basename(s).encode() + b"\0" + f.read())
+    h.update(" ".join(flags).encode())
+    return os.path.join(BUILD, f"{prefix}_{h.hexdigest()[:16]}.so")
+
+
+def _locked_build(lib: str, make):
+    """make() under an exclusive lock on _build/build.lock (released when
+    this process ends, however it ends), unless lib exists by then."""
+    if os.path.exists(lib):
+        return lib
+    os.makedirs(BUILD, exist_ok=True)
+    with open(os.path.join(BUILD, "build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not os.path.exists(lib):     # another process built it meanwhile
+            make()
+    return lib
+
+
+def host_library(source: str) -> str:
+    """Compile the host C++ file csrc/<source> with g++ (HOST_FLAGS) into
+    _build/ if that exact source has not been built yet; return the
+    library path. A failed build raises BuildError."""
+    src = os.path.join(CSRC, source)
+    stem = os.path.splitext(source)[0]
+    lib = _hashed_path(f"libbm{stem}", [src], HOST_FLAGS)
+
+    def make():
+        cxx = shutil.which("g++")
+        if cxx is None:
+            raise BuildError("g++ not found: the host tokenizer needs the "
+                             "C++ compiler nvcc uses")
+        with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
+            out = os.path.join(tmp, "lib.so")
+            res = subprocess.run([cxx, *HOST_FLAGS, "-o", out, src],
+                                 capture_output=True, text=True)
+            if res.returncode != 0:
+                raise BuildError(f"g++ failed on {source}:\n{res.stderr}")
+            os.replace(out, lib)
+
+    return _locked_build(lib, make)
+
+
 def build(verbose: bool = False) -> str:
     """Compile csrc/*.cu into _build/ if that exact source set has not been
     built yet; return the library path. The .cu files compile in parallel
@@ -94,20 +149,8 @@ def build(verbose: bool = False) -> str:
     lock on _build/build.lock (released when this process ends, however it
     ends)."""
     srcs = _sources()
-    h = hashlib.sha256()
-    for s in srcs:
-        with open(s, "rb") as f:
-            h.update(os.path.basename(s).encode() + b"\0" + f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    lib = os.path.join(BUILD, f"libbmkernels_{h.hexdigest()[:16]}.so")
-    if os.path.exists(lib):
-        return lib
-    os.makedirs(BUILD, exist_ok=True)
-    with open(os.path.join(BUILD, "build.lock"), "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if not os.path.exists(lib):     # another process built it meanwhile
-            _compile(srcs, lib, verbose)
-    return lib
+    lib = _hashed_path("libbmkernels", srcs, NVCC_FLAGS)
+    return _locked_build(lib, lambda: _compile(srcs, lib, verbose))
 
 
 def _compile(srcs, lib: str, verbose: bool):
@@ -236,6 +279,23 @@ def on_cpu(*tensors) -> bool:
                      f"{sorted(map(str, devs))}")
 
 
+PLAIN_ROWS = 1 << 16
+
+
+def plain_by_rows(fn, *tensors, rows: int | None = None):
+    """fn (a plain version) over the tensors' leading rows, `rows` (default
+    PLAIN_ROWS) at a time, its outputs (a tensor or a tuple of them)
+    joined: a plain Montgomery product builds (n, 16, 16) int64
+    temporaries, gigabytes for a whole proving key at once."""
+    n, rows = tensors[0].shape[0], rows or PLAIN_ROWS
+    if n <= rows:
+        return fn(*tensors)
+    parts = [fn(*(t[i:i + rows] for t in tensors)) for i in range(0, n, rows)]
+    if isinstance(parts[0], tuple):
+        return tuple(torch.cat(p) for p in zip(*parts))
+    return torch.cat(parts)
+
+
 K = {
     # the whole FFT (bit-reversal gather + every stage), one launch per pass;
     # the prove path's counterpart of the per-stage TPU butterfly
@@ -289,6 +349,15 @@ K = {
     "fixed_base_exp": Kernel("fixed_base_exp", "bm_fixed_base_exp",
                              "blockmaze_tpu_torch/csrc/fixed_base.cu",
                              "blockmaze_tpu/curves/pcurve.py:102,115"),
+    # the proving key's point decompression (text keys), one thread a
+    # point; the JAX package did it on the host (C++ over GMP), not in
+    # Pallas
+    "decompress_g1": Kernel("decompress_g1", "bm_decompress",
+                            "blockmaze_tpu_torch/csrc/keyload.cu",
+                            "blockmaze_tpu/native/keyparse.cpp:138"),
+    "decompress_g2": Kernel("decompress_g2", "bm_decompress",
+                            "blockmaze_tpu_torch/csrc/keyload.cu",
+                            "blockmaze_tpu/native/keyparse.cpp:265"),
 }
 
 

@@ -84,7 +84,8 @@ class CircuitContext:
     def prover(self) -> Prover:
         if self._prover is None:
             dpk = gkeys.load_or_build(
-                os.path.join(self.key_dir, f"{self.name}pk.txt"))
+                os.path.join(self.key_dir, f"{self.name}pk.txt"),
+                device=self.device)
             self._prover = Prover(dpk, self.device)
         return self._prover
 

@@ -7,7 +7,8 @@ on four.
                                          # call on four cards)
 
 Phases, each timed; any failure raises and the script exits nonzero:
-  0. build the CUDA kernels from blockmaze_tpu_torch/csrc (nvcc, sm_90a);
+  0. build the CUDA kernels from blockmaze_tpu_torch/csrc (nvcc, sm_90a)
+     and the host tokenizer csrc/keyparse.cpp (g++);
   1. every kernel against its plain torch version on the same CUDA tensors,
      bit-exact, with kernel and plain times and each kernel's bound, at the
      shapes the main path gives it: fft at mint's 2^17 and 2^16 and send's
@@ -22,7 +23,11 @@ Phases, each timed; any failure raises and the script exits nonzero:
      path since fixed_base_exp took their keygen role); fixed_base_exp
      (keygen's whole window ladder and affine normalisation) on 2^18 G1
      and 2^17 G2 scalars with edge scalars (0, 1, r-1, powers of two,
-     bytes of 0 and 255); the MSM kernels (msm_round, msm_combine,
+     bytes of 0 and 255); decompress_g1 and decompress_g2 (a text key's
+     point decompression) on 2^16 G1 and 2^14 G2 points s_i * G of seeded
+     scalars with zero points and both parities, held also to the points
+     themselves, and an x off its curve that must raise; the MSM kernels
+     (msm_round, msm_combine,
      msm_triangle, msm_fold) at the mint MSMs' shape (2^18 G1 and 2^17 G2
      points, c = 12, 22 windows) on real blinded data cut as msm cuts its
      live stream, with runs across many lanes and combine blocks; and
@@ -104,11 +109,29 @@ Phases, each timed; any failure raises and the script exits nonzero:
      process_mesh_path(k), the phases and torch.cuda.max_memory_allocated
      after the Prover's init beside the single-card Prover's. A rank that
      exits nonzero or overruns RANK_TIMEOUT fails the script. A `process
-     mesh summary:` line holds phase 8's numbers.
+     mesh summary:` line holds phase 8's numbers;
+  9. the reference's text keys (TEXT_KEY_CIRCUITS: mint and deposit at
+     Merkle depth 8, the two extremes of key size): phases 3-4's key
+     written once with the port's io.write_proving_key into
+     blockmaze_tpu_torch/_keys/text/ (timed apart), loaded back through
+     keys.load_or_build(..., device=cuda:0) into a fresh cache directory
+     (the host tokenizer csrc/keyparse.cpp, one decompress_g1 and one
+     decompress_g2 launch, one mul_elementwise for the coefficients:
+     KEYLOAD_LAUNCHES exactly, counted around the load alone), the npz it
+     writes held to KEY_SHA256, a proof at (1, 2) from the loaded key
+     equal to the keygen key's and verified, each decompression kernel
+     held bit-exact against its plain version on the card on the very
+     arrays the load gave it (these shapes, deposit's last, are the
+     kernels line's); the load's phases (tokenize,
+     upload, each kernel's CUDA-event ms beside its bound at these shapes,
+     coefficients, npz write, total) and the Python reader's seconds per
+     point on a sample of the file's first points (READER_SAMPLE), in a
+     `text key summary:` line per circuit. It runs after phase 6.
 Each circuit's launch counts are reset just before its keygen and read
 just after it, and reset again just before its three proofs and read just
 after them; phase 5 reads them around each transaction and phase 6 around
-each batch: each path must launch each of its kernels. The keygen path
+each batch, and phase 9 around each text key's load: each path must
+launch each of its kernels. The keygen path
 (KEYGEN_PATH): one fixed_base_exp per query (six) and one
 mul_elementwise (the coefficients' Montgomery form), never a batched
 point kernel (add, double, mixed adds). Each keygen's summary splits its
@@ -160,7 +183,10 @@ of 253 squarings and 109 multiplies (G2: of the norm, 4 Fq products
 around it)),
 per butterfly for fft (k * 2^(k-1)) plus one per element and
 factor, per term for qap_matvec, and per element and step for step_pre,
-step_post and qap_combine.
+step_post and qap_combine, per point for decompress_g1 and
+decompress_g2 what the kernel's chains take (decompress_products: G1
+364 Fq products per nonzero point, G2 1,710; G2's Tonelli-Shanks loop,
+under 4% and dependent on the point, is left out).
 """
 
 from __future__ import annotations
@@ -205,19 +231,27 @@ PRODUCTS = {"g1": {"add": 16, "dbl": 7, "madd": 11, "affine": 3 + 4,
 ORDER = ["fft", "butterfly", "mul_elementwise", "qap_matvec", "step_pre",
          "step_post", "qap_combine", "add", "double", "msm_round",
          "msm_combine", "msm_triangle", "msm_fold", "mixed_add",
-         "mixed_add_noexc", "fixed_base_exp"]
+         "mixed_add_noexc", "fixed_base_exp", "decompress_g1",
+         "decompress_g2"]
 # keygen: one fixed_base_exp per query (A, H, L, the vk's inputs, B in G2
 # and G1) and the coefficients' Montgomery form in one mul_elementwise;
 # the batched point kernels it ran before stay off this path too
 KEYGEN_PATH = ["fixed_base_exp", "mul_elementwise"]
 KEYGEN_LAUNCHES = {"fixed_base_exp": 6, "mul_elementwise": 1}
+# loading a text key (keys.load_or_build on a miss): one decompress_g1 for
+# every G1 point of the key, one decompress_g2 for B's G2 points and one
+# mul_elementwise for the coefficients, nothing else
+KEYLOAD_LAUNCHES = {"decompress_g1": 1, "decompress_g2": 1,
+                    "mul_elementwise": 1}
+DECOMPRESS = ["decompress_g1", "decompress_g2"]
 POINT_KERNELS = ["add", "double", "mixed_add", "mixed_add_noexc"]
 QAP_KERNELS = ["qap_matvec", "step_pre", "step_post", "qap_combine"]
 MSM_KERNELS = ["msm_round", "msm_combine", "msm_triangle", "msm_fold"]
 # the batched point kernels (the bucket reduction replaced them on the prove
 # path, fixed_base_exp on the keygen path), keygen's own kernel and the
 # single-stage butterfly (fft replaced it)
-OFF_PROVE_PATH = POINT_KERNELS + ["fixed_base_exp", "butterfly"]
+OFF_PROVE_PATH = POINT_KERNELS + ["fixed_base_exp", "butterfly",
+                                  *DECOMPRESS]
 # The prove path by domain kind: the kernels each proof launches, those it
 # must not launch, and the most launches per proof of each group of
 # kernels. A step domain's 7 FFTs each run a big and a small part (two
@@ -251,7 +285,7 @@ MESH_CIRCUITS = ["mint", "deposit20"]
 # the witness's Montgomery form, the step domain's stages and
 # qap_combine; each MSM folds its shards' partials with n - 1 point adds.
 MESH_NEVER = ["butterfly", "double", "mixed_add", "mixed_add_noexc",
-              "fixed_base_exp"]
+              "fixed_base_exp", *DECOMPRESS]
 MESH_PATH = {
     "step": {"launch": ["fft", "mul_elementwise", *QAP_KERNELS,
                         *MSM_KERNELS, "add"],
@@ -302,6 +336,18 @@ def process_mesh_path(ranks: int) -> dict:
                               (["add"], 5 * (ranks - 1))]}}
 
 
+# Phase 9: the depth-8 circuits at the two extremes of key size, whose
+# phase-3/4 keys are written as the reference's text keys and loaded back,
+# and the Python reader's sample: its first G1 points of A and G2 points
+# of B
+TEXT_KEY_CIRCUITS = ["mint", "deposit"]
+READER_SAMPLE = {"g1": 20000, "g2": 2000}
+# rows a plain decompression call takes when phase 9 holds the kernels
+# against it at a key's shapes (its int64 temporaries stay under ~1 GB)
+PLAIN_CHECK_ROWS = 1 << 18
+# run_circuit's results of TEXT_KEY_CIRCUITS for phase 9: name -> (vk,
+# primary, aux, proof at (1, 2))
+TEXT_RUNS = {}
 # run_circuit's single-card results of MESH_CIRCUITS, for phases 7 and 8:
 # name -> (prover, vk, primary, aux, proof at (1, 2), proof timings,
 # the Prover's device memory: {"allocated_mb", "peak_mb"})
@@ -375,7 +421,10 @@ def main():
     t0 = time.perf_counter()
     lib = kn.build(verbose=True)
     kn.LIB.get()
-    log(f"phase 0 build: {time.perf_counter() - t0:.1f}s ({lib})")
+    t1 = time.perf_counter()
+    host_lib = kn.host_library("keyparse.cpp")
+    log(f"phase 0 build: {time.perf_counter() - t0:.1f}s ({lib}; the host "
+        f"tokenizer {time.perf_counter() - t1:.1f}s, {host_lib})")
 
     if mesh_only:
         # the mesh's inputs alone: the single-card runs it is held against
@@ -443,6 +492,12 @@ def single_card_phases(dev, rng, report):
         t0 = time.perf_counter()
         path_counts += phase6(name, dev)
         log(f"phase 6 prove_batch {name}: {time.perf_counter() - t0:.1f}s")
+
+    # ---- phase 9: the reference's text keys ------------------------------
+    for name in TEXT_KEY_CIRCUITS:
+        t0 = time.perf_counter()
+        path_counts += phase9(name, dev, report)
+        log(f"phase 9 text key {name}: {time.perf_counter() - t0:.1f}s")
     return path_counts
 
 
@@ -617,6 +672,7 @@ def phase1(dev, rng, report):
             int((~qinf).sum()) * pr["madd"], madd_bytes)
 
     fixed_base_parity(dev, rng, check, record)
+    decompress_parity(dev, rng, check, record)
 
     # the MSM kernels at the mint MSMs' shape: n = nA = nH = nL in G1,
     # n = nB in G2
@@ -668,6 +724,107 @@ def fixed_base_parity(dev, rng, check, record,
         out_bytes = 2 * nbytes(table.x[0, 0]) * n + n
         moved = nbytes(sc) + nbytes(table.packed, table.flags) + out_bytes
         record("fixed_base_exp", res, products, moved)
+
+
+def std_limbs(spec, t):
+    """Montgomery limbs (a tensor) in standard form, int32, by tfield's
+    plain ops in chunks of 2^18 rows."""
+    from blockmaze_tpu_torch.fields import tfield as tf
+    return torch.cat([tf.from_mont(spec, c).to(torch.int32)
+                      for c in t.split(1 << 18)])
+
+
+def off_curve_x(curve):
+    """The smallest x (G2: (x, 1)) whose y^2 is no square: a point of that
+    x is on no curve."""
+    from blockmaze_tpu_torch.curves import host_curve as HC
+    from blockmaze_tpu_torch.fields import host as hf
+    from blockmaze_tpu_torch.fields.constants import Q_MOD
+    if curve == "g1":
+        return next(x for x in range(1, 100)
+                    if hf.fq_sqrt((x ** 3 + 3) % Q_MOD) is None)
+    return next((x, 1) for x in range(1, 100) if hf.fq2_sqrt(hf.fq2_add(
+        hf.fq2_mul(hf.fq2_sqr((x, 1)), (x, 1)), HC.g2_b_coeff())) is None)
+
+
+def decompress_products(curve, zero) -> int:
+    """The Fq products decompress_{curve} runs on points with these zero
+    flags, the one count behind its bounds: for each nonzero point the
+    chain of its root (dc.G1_CHAIN, dc.G2_CHAIN; for G2 also x = a w0,
+    b = x w0 and b's S - 1 squarings) and the products around it
+    (dc.G1_AROUND, dc.G2_AROUND). G2's Tonelli-Shanks loop, at most
+    S - 1 rounds of a few products whose count depends on the point
+    (under 4% of its work), is left out, so the bound stays below the
+    work."""
+    from blockmaze_tpu_torch.curves import decompress as dc
+    if curve == "g1":
+        per = sum(dc.G1_CHAIN) + dc.G1_AROUND
+    else:
+        per = (dc.G2_CHAIN[0] * dc.G2_SQR + dc.G2_CHAIN[1] * dc.G2_MUL
+               + 2 * dc.G2_MUL + (dc.TS_S - 1) * dc.G2_SQR + dc.G2_AROUND)
+    return int((zero == 0).sum()) * per
+
+
+def decompress_bytes(xs) -> int:
+    """Bytes decompress_g1/g2 must move: x, lsb and zero in; x, y, inf and
+    bad out."""
+    return 3 * nbytes(xs) + 4 * xs.shape[0]
+
+
+def decompress_parity(dev, rng, check, record,
+                      sizes=(("g1", 1 << 16), ("g2", 1 << 14))):
+    """decompress_g1 and decompress_g2 (one thread a point: y from x and
+    the parity bit, the key's affine Montgomery limbs out) against their
+    plain versions on 2^16 G1 and 2^14 G2 points s_i * G of seeded scalars
+    (edge scalars first, 0 among them, and 16 more zeros: zero points),
+    compressed as a text key holds them (x in standard form, the parity of
+    y or y.c0, the zero flag; both parities occur); the result must also
+    be the points themselves. Products and bytes: decompress_products and
+    decompress_bytes. Then one x off its curve among 256 points must raise
+    ValueError naming its index."""
+    from blockmaze_tpu_torch.curves import decompress as dc
+    from blockmaze_tpu_torch.curves import host_curve as HC
+    from blockmaze_tpu_torch.fields import tfield as tf
+    from blockmaze_tpu_torch.groth16 import generator as gen
+    from blockmaze_tpu_torch.msm import pippenger as pp
+    for curve, n in sizes:
+        base = HC.g1_generator() if curve == "g1" else HC.g2_generator()
+        sc = edge_scalars(n, rng, dev)
+        sc[16:32] = 0
+        pts = gen.fixed_base_exp(curve, gen.window_table(curve, base, dev),
+                                 sc, pp.make_blind(curve, dev)[1])
+        x, y, inf = pts
+        xs = std_limbs(tf.FQ, x)
+        ystd = std_limbs(tf.FQ, y if curve == "g1" else y[:, 0])
+        lsb = torch.where(inf, 1, ystd[:, 0] & 1).to(torch.uint8)
+        xs[inf] = 0
+        zero = inf.to(torch.uint8)
+        parities = set(lsb[~inf].unique().tolist())
+        if parities != {0, 1} or int(inf.sum()) < 17:
+            raise AssertionError(f"decompress_{curve}: inputs lack a "
+                                 f"parity or zero points")
+        name = f"decompress_{curve}"
+        res = check(name, f"{curve} n={n}, {int(inf.sum())} zero",
+                    lambda: dc.decompress(curve, xs, lsb, zero),
+                    lambda: dc.PLAIN[curve](xs, lsb, zero)[:3])
+        if not same(dc.decompress(curve, xs, lsb, zero), pts):
+            raise AssertionError(f"{name}: not the points themselves")
+        log(f"  {name:<16} equal to the points s_i * G: True")
+        record(name, res, decompress_products(curve, zero),
+               decompress_bytes(xs))
+        # an x off its curve at index 5 of 256 points raises
+        bad = xs[:256].clone()
+        bad[5] = tf.to_tensor(tf.ints_to_limbs(
+            [off_curve_x(curve)] if curve == "g1" else
+            list(off_curve_x(curve))).reshape(bad[5].shape), dev)
+        try:
+            dc.decompress(curve, bad, lsb[:256], zero[:256])
+        except ValueError as e:
+            if "points[5]" not in str(e):
+                raise
+            log(f"  {name:<16} off-curve x raised: {e}")
+        else:
+            raise AssertionError(f"{name}: an x off the curve passed")
 
 
 def fft_parity(dev, rng, check, record):
@@ -1097,6 +1254,8 @@ def run_circuit(name, dev):
     log("  proofs 0 and 1 (equal r, s; fresh blinds) equal: True")
     if name in MESH_CIRCUITS:
         RUNS[name] = (prover, vk, primary, aux, proofs[0], times[1], mem)
+    if name in TEXT_KEY_CIRCUITS:
+        TEXT_RUNS[name] = (vk, primary, aux, proofs[0])
     matrix_stats(name, prover)
     summary["live"] = digit_stats(prover)
     log(f"  circuit summary: {json.dumps(summary)}")
@@ -1187,6 +1346,205 @@ def key_digests(cache, name) -> dict:
     out["all"] = hashlib.sha256(json.dumps(out, sort_keys=True)
                                 .encode()).hexdigest()
     return out
+
+
+def write_text_key(npz, txt, dev):
+    """The reference's text key (io.write_proving_key, the port's copy of
+    the JAX package's writer) of the cached DevicePK at npz: its points
+    and coefficients in standard form (tfield's plain ops on the card),
+    then as host ints."""
+    from blockmaze_tpu_torch.fields import tfield as tf
+    from blockmaze_tpu_torch.groth16 import keys
+    from blockmaze_tpu_torch.serialization import libsnark_io as io
+    dpk = keys.load_device_pk(npz)
+
+    def ints(a, spec=tf.FQ):
+        return tf.limbs_to_ints(
+            std_limbs(spec, tf.to_tensor(a, dev)).cpu().numpy())
+
+    def g1(pts):
+        x, y, inf = pts
+        return list(zip(ints(x), ints(y), (int(f) for f in inf)))
+
+    def g2(pts):
+        x, y, inf = pts
+        return list(zip(zip(ints(x[:, 0]), ints(x[:, 1])),
+                        zip(ints(y[:, 0]), ints(y[:, 1])),
+                        (int(f) for f in inf)))
+
+    cons = [([], [], []) for _ in range(dpk.num_constraints)]
+    for k, sel in enumerate("abc"):
+        coeffs = ints(getattr(dpk, f"{sel}_coeff"), tf.FR)
+        for r, v, c in zip(getattr(dpk, f"{sel}_row").tolist(),
+                           getattr(dpk, f"{sel}_var").tolist(), coeffs):
+            cons[r][k].append((v, c))
+    pk = io.ProvingKey(
+        alpha_g1=dpk.alpha_g1, beta_g1=dpk.beta_g1, beta_g2=dpk.beta_g2,
+        delta_g1=dpk.delta_g1, delta_g2=dpk.delta_g2, A_query=g1(dpk.A),
+        B_domain=dpk.num_variables + 1, B_indices=dpk.B_idx.tolist(),
+        B_g2=g2(dpk.B2), B_g1=g1(dpk.B1), H_query=g1(dpk.H),
+        L_query=g1(dpk.L), cs=io.ConstraintSystem(
+            dpk.primary_input_size, dpk.aux_input_size, cons))
+    os.makedirs(os.path.dirname(txt), exist_ok=True)
+    keys.replace_atomically(txt, lambda tmp: io.write_proving_key(tmp, pk))
+
+
+def reader_sample(txt) -> dict:
+    """The Python reader's (libsnark_io.read_g1 / read_g2) seconds per point
+    on the first READER_SAMPLE points of A (G1) and of B (G2): a sample,
+    not a full load."""
+    from blockmaze_tpu_torch.serialization import libsnark_io as io
+    ts = io.TokenStream(txt)
+    try:
+        for read in (io.read_g1, io.read_g1, io.read_g2, io.read_g1,
+                     io.read_g2):
+            read(ts)
+        n_a = ts.next_int()
+        k1 = min(n_a, READER_SAMPLE["g1"])
+        t0 = time.perf_counter()
+        for _ in range(k1):
+            io.read_g1(ts)
+        g1_s = (time.perf_counter() - t0) / k1
+        for _ in range(3 * (n_a - k1)):
+            ts.next()
+        ts.next_int()                                   # B's domain
+        for _ in range(ts.next_int()):                  # B's indices
+            ts.next()
+        k2 = min(ts.next_int(), READER_SAMPLE["g2"])
+        g2_s = 0.0
+        for _ in range(k2):
+            t0 = time.perf_counter()
+            io.read_g2(ts)
+            g2_s += time.perf_counter() - t0
+            for _ in range(3):                          # its G1 half
+                ts.next()
+    finally:
+        ts.close()
+    return {"g1_points": k1, "g1_us_per_point": round(g1_s * 1e6, 1),
+            "g2_points": k2, "g2_us_per_point": round(g2_s / k2 * 1e6, 1)}
+
+
+def phase9(name, dev, report):
+    """Circuit `name`'s phase-3/4 key as the reference's text key (written
+    once into blockmaze_tpu_torch/_keys/text/, timed apart), loaded back
+    through keys.load_or_build(..., device=cuda:0) into a fresh cache
+    directory with the launch counts reset just before and read just
+    after (KEYLOAD_LAUNCHES exactly); the npz it writes must have
+    KEY_SHA256[name]'s digests, and a Prover on the loaded key must give
+    at (1, 2) the keygen key's proof, which verifies. Each decompression
+    kernel is then held against its plain version on the card on the very
+    arrays the load handed it (bit-exact, PLAIN_CHECK_ROWS rows a plain
+    call; the load's own result equal to a second launch), and this shape
+    becomes the kernel's on the kernels line; so is mul_elementwise on the
+    key's coefficients (phase 1's shape stays its line's). Prints the load's
+    phases (tokenize, upload, the two kernels' CUDA-event ms with their
+    bounds at these shapes, coefficients, npz write, total), the Python
+    reader's sample and a `text key summary:` line. Returns the load
+    path's launch counts."""
+    import shutil
+    from blockmaze_tpu_torch.curves import decompress as dc
+    from blockmaze_tpu_torch.groth16 import keys, verifier
+    from blockmaze_tpu_torch.groth16.prover import Prover
+    from blockmaze_tpu_torch.ntt import pntt
+    from blockmaze_tpu_torch.utils import kernels as kn
+    vk, primary, aux, want = TEXT_RUNS[name]
+    cache, base = key_cache(), f"{name}_s{SEED}"
+    txt = os.path.join(cache, "text", f"{base}.txt")
+    summary = {"circuit": name}
+    if not os.path.exists(txt):
+        t0 = time.perf_counter()
+        write_text_key(os.path.join(cache, f"{base}.v1.npz"), txt, dev)
+        summary["write_text_s"] = round(time.perf_counter() - t0, 2)
+        log(f"  text key written: {txt} ({summary['write_text_s']}s)")
+    summary["file_mb"] = round(os.path.getsize(txt) / 2**20, 1)
+
+    raw, events, timings = dc.decompress_raw, [], {}
+
+    def timed_raw(curve, xs, lsb, zero):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = raw(curve, xs, lsb, zero)
+        end.record()
+        events.append((curve, (xs, lsb, zero), out, start, end))
+        return out
+
+    mul, coeff_calls = pntt.mul_elementwise, []
+
+    def kept_mul(a, b):
+        out = mul(a, b)
+        coeff_calls.append((a, b, out))
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="bm_textkey_") as tmp:
+        shutil.copy(os.path.join(cache, f"{base}_vk.txt"), tmp)
+        dc.decompress_raw, pntt.mul_elementwise = timed_raw, kept_mul
+        kn.reset_counts()
+        t0 = time.perf_counter()
+        try:
+            dpk = keys.load_or_build(txt, tmp, device=dev, timings=timings)
+            torch.cuda.synchronize()
+        finally:
+            dc.decompress_raw, pntt.mul_elementwise = raw, mul
+        total = time.perf_counter() - t0
+        counts = kn.counts()
+        check_launches("text-key load path", counts, list(KEYLOAD_LAUNCHES),
+                       [k for k in kn.K if k not in KEYLOAD_LAUNCHES])
+        if any(counts[k] != v for k, v in KEYLOAD_LAUNCHES.items()):
+            raise RuntimeError(f"text-key load path: launches {counts}, "
+                               f"not {KEYLOAD_LAUNCHES}")
+        digests = key_digests(tmp, name)
+    if digests["all"] != KEY_SHA256[name]:
+        raise AssertionError(f"{name}: the loaded text key's digest "
+                             f"{digests['all']} != KEY_SHA256's")
+    log(f"  {name} text key loaded equal to KEY_SHA256's (every DevicePK "
+        f"array and the vk)")
+    summary.update({k: round(v, 3) for k, v in timings.items()},
+                   total_s=round(total, 3))
+    for curve, args, out, start, end in events:
+        xs, zero = args[0], args[2]
+        kname = f"decompress_{curve}"
+        products, moved = decompress_products(curve, zero), \
+            decompress_bytes(xs)
+        res = check_kernel(
+            kname, f"{name} key, {curve} n={xs.shape[0]}",
+            lambda: raw(curve, *args),
+            lambda: kn.plain_by_rows(dc.PLAIN[curve], *args,
+                                     rows=PLAIN_CHECK_ROWS))
+        if not same(out, raw(curve, *args)):
+            raise AssertionError(f"{kname}: the load's result differs from "
+                                 f"a second launch")
+        record_kernel(report, kname, res, products, moved, primary=True)
+        b_ms, b_by = bound(products, moved)
+        summary[kname] = {
+            "points": xs.shape[0], "ms": round(start.elapsed_time(end), 4),
+            "bound_ms": round(b_ms, 4), "bound_by": b_by,
+            "plain_ms": round(res[2], 1)}
+    for a, b, out in coeff_calls:
+        res = check_kernel(
+            "mul_elementwise", f"{name} key coefficients x R^2 row, "
+            f"n={a.shape[0]}", lambda: mul(a, b),
+            lambda: kn.plain_by_rows(lambda r: pntt.mul_elementwise_plain(
+                r, b), a, rows=PLAIN_CHECK_ROWS))
+        if not same((out,), (mul(a, b),)):
+            raise AssertionError("mul_elementwise: the load's result "
+                                 "differs from a second launch")
+        record_kernel(report, "mul_elementwise", res, a.shape[0],
+                      nbytes(a, b) + nbytes(out))
+    t0 = time.perf_counter()
+    prover = Prover(dpk, dev)
+    proof = prover.prove(primary, aux, r=1, s=2)
+    same_proof = (proof.a, proof.b, proof.c) == (want.a, want.b, want.c)
+    ok = verifier.verify(vk, primary, proof)
+    log(f"  proof at (1, 2) from the loaded key: equal to the keygen key's "
+        f"{same_proof}, verified {ok} ({time.perf_counter() - t0:.1f}s)")
+    if not (same_proof and ok):
+        raise AssertionError(f"{name}: the text key's proof differs or "
+                             f"fails to verify")
+    del prover
+    summary["python_reader_sample"] = reader_sample(txt)
+    log(f"  text key summary: {json.dumps(summary)}")
+    return [counts]
 
 
 def phase3(dev, report):

@@ -79,21 +79,29 @@ def dpk_dict(dpk):
 
 
 def test_load_or_build_matches_jax(jax_reference, tmp_path):
-    """A miss parses the text key and writes <base>.v1.npz beside it, a hit
-    loads that file; both give the DevicePK the JAX package's load_or_build
-    gives for the same file."""
+    """A miss parses the text key (on the CPU: the tokenizer and the
+    decompression kernels' plain versions) and writes <base>.v1.npz
+    beside it, a hit loads that file; both give the DevicePK the JAX
+    package's load_or_build gives for the same file, and the two npz files
+    hold the same arrays."""
     pk = jax_reference[1]
     path = str(tmp_path / "toypk.txt")
     jio.write_proving_key(path, pk)
     cache = str(tmp_path / "toypk.v1.npz")
     assert not os.path.exists(cache)
-    built = keys.load_or_build(path)
+    built = keys.load_or_build(path, device="cpu")
     assert os.path.exists(cache)
     stamp = os.path.getmtime(cache)
-    loaded = keys.load_or_build(path)
+    loaded = keys.load_or_build(path, device="cpu")
     assert os.path.getmtime(cache) == stamp
     os.makedirs(tmp_path / "jax")
     want = dpk_dict(jkeys.load_or_build(path, str(tmp_path / "jax")))
+    with np.load(cache) as got_z, \
+            np.load(str(tmp_path / "jax" / "toypk.v1.npz")) as want_z:
+        assert sorted(got_z.files) == sorted(want_z.files)
+        for k in want_z.files:
+            assert got_z[k].dtype == want_z[k].dtype, k
+            assert np.array_equal(got_z[k], want_z[k]), k
     for got in (dpk_dict(built), dpk_dict(loaded)):
         assert got.keys() == want.keys()
         for name, value in want.items():

@@ -27,6 +27,8 @@ def test_package_imports_without_jax():
         blockmaze_tpu_torch.__path__, "blockmaze_tpu_torch.")]
     assert "blockmaze_tpu_torch.groth16.prover" in mods
     assert "blockmaze_tpu_torch.groth16.verifier" in mods
+    assert "blockmaze_tpu_torch.serialization.native_io" in mods
+    assert "blockmaze_tpu_torch.curves.decompress" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods + ['chip_smoke']!r}:\n"
             "    importlib.import_module(m)\n"

@@ -210,8 +210,8 @@ def test_initialize_two_processes():
     code = textwrap.dedent("""
         import torch, torch.distributed as dist
         from blockmaze_tpu_torch.parallel import distributed
-        assert distributed.initialize()
-        assert distributed.initialize()
+        assert distributed.initialize(device="cpu")
+        assert distributed.initialize(device="cpu")
         t = torch.tensor([dist.get_rank() + 1])
         dist.all_reduce(t)
         print(int(t))

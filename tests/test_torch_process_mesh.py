@@ -93,7 +93,7 @@ def _rank_main(workdir):
     torch.set_num_threads(1)
     with open(os.path.join(workdir, "inputs.pkl"), "rb") as f:
         inp = pickle.load(f)
-    assert distributed.initialize()
+    assert distributed.initialize(device="cpu")
     mesh = distributed.global_mesh()
     out = {"rank": mesh.rank, "size": mesh.size, "lead": str(mesh.lead),
            "devices": [str(d) for d in mesh.devices],
@@ -142,7 +142,7 @@ def _torchrun_main(workdir):
     <workdir>/torchrun<rank>.pkl."""
     from blockmaze_tpu_torch.parallel import mesh as pm
     torch.set_num_threads(1)
-    assert distributed.initialize()
+    assert distributed.initialize(device="cpu")
     mesh = distributed.global_mesh()
     vals = tf.to_mont_host(FR, list(range(1, 9)))
     out = {"rank": mesh.rank, "backend": torch.distributed.get_backend(),
@@ -473,6 +473,35 @@ def test_torchrun_launch(tmp_path):
     ids=["4-cards", "shared-card", "cpu", "2-hosts", "mixed"])
 def test_choose_backend(placement, backend):
     assert distributed.choose_backend(placement) == backend
+
+
+@pytest.mark.parametrize("hosts,local", [
+    (["a", "a", "b", "b"], [0, 1, 0, 1]),
+    (["a", "b", "a", "b"], [0, 0, 1, 1]),
+    (["a"], [0])], ids=["blocks", "interleaved", "one"])
+def test_local_indices(hosts, local):
+    """Without LOCAL_RANK a process's card is the number of lower ranks on
+    its own host, not its global rank (a second one-card host takes
+    cuda:0)."""
+    assert distributed.local_indices(hosts) == local
+
+
+def test_exchange_through_store():
+    """The hostname exchange initialize runs without LOCAL_RANK: every
+    process's value in rank order, through the rendezvous store."""
+    store = torch.distributed.TCPStore("127.0.0.1", _free_port(), 1,
+                                       is_master=True)
+    assert distributed._exchange(store, "host", "h0", 1, 0) == ["h0"]
+
+
+def test_initialize_without_a_card_raises(monkeypatch):
+    """Two processes and no visible card: initialize raises unless the
+    caller asks for the CPU, before it opens any store."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for dev in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="device=\"cpu\""):
+            distributed.initialize("127.0.0.1:1", 2, 1, device=dev)
+    assert not torch.distributed.is_initialized()
 
 
 def test_save_device_pk_is_atomic(tmp_path, monkeypatch):

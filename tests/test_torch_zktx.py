@@ -5,9 +5,11 @@ same (primary, aux) handed to the prover and the same primary input built
 for the verifier. A recording stub stands in for each circuit's prover and
 for the verifier, so no proof is computed here."""
 
+import os
 import random
 import types
 
+import numpy as np
 import pytest
 import torch
 
@@ -182,3 +184,27 @@ def test_warm_builds_cpu_prover_from_npz_cache(tmp_path):
     assert prover.dpk.num_constraints == len(pb.constraints)
     assert svc.circuits["mint"].vk == vk
     assert svc.circuits["send"]._prover is None
+
+
+def test_warm_loads_text_key_on_its_device(tmp_path):
+    """A key directory holding the text key <name>pk.txt: warm() reads it
+    on the service's device (here the CPU: the tokenizer and the
+    decompression kernels' plain versions, not the card a default would
+    ask for), writes <name>pk.v1.npz beside it, and the key equals the
+    Python reader's."""
+    w = 7654321
+    pb = toy_circuit(w * w % R_MOD, w)
+    toxic = iter([3, 5, 7, 11, 13])
+    pk, vk = generator.generate(pb, "cpu", rng=lambda: next(toxic))
+    io.write_proving_key(str(tmp_path / "mintpk.txt"), pk)
+    io.write_verification_key(str(tmp_path / "mintvk.txt"), vk)
+    svc = api.ZkTx(str(tmp_path), device="cpu")
+    svc.warm(["mint"])
+    prover = svc.circuits["mint"]._prover
+    assert prover.device.type == "cpu"
+    assert os.path.exists(tmp_path / "mintpk.v1.npz")
+    want = keys.build_device_pk(io.load_proving_key(
+        str(tmp_path / "mintpk.txt")))
+    for f in ("A", "B2", "B1", "H", "L"):
+        assert all(np.array_equal(a, b) for a, b in
+                   zip(getattr(prover.dpk, f), getattr(want, f))), f
