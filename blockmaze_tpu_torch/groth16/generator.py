@@ -385,21 +385,29 @@ def _coo_arrays(coo, device) -> dict:
     return out
 
 
-def generate_cached(pb: Protoboard, name: str, seed: int, cache_dir: str,
+def cache_paths(name: str, seed: int, cache_dir: str) -> tuple[str, str]:
+    """(npz DevicePK, vk) paths of generate_cached's keys for circuit
+    `name` and `seed` in cache_dir."""
+    base = os.path.join(cache_dir, f"{name}_s{seed}")
+    return f"{base}.v{K.CACHE_VERSION}.npz", f"{base}_vk.txt"
+
+
+def generate_cached(pb, name: str, seed: int, cache_dir: str,
                     device="cuda", timings=None):
     """Keys for circuit `name` with toxic waste from random.Random(seed),
     cached in cache_dir as the v1 npz DevicePK plus the libsnark-format vk
-    (<name>_s<seed>.v1.npz, <name>_s<seed>_vk.txt). Generates and writes
-    them on a miss: the DevicePK straight from the kernel's affine limbs
-    and keygen's COO lists, no point or coefficient through a Python-int
-    conversion. Returns (DevicePK, VerificationKey, generated). timings, if
+    (cache_paths). Generates and writes them on a miss: the DevicePK
+    straight from the kernel's affine limbs and keygen's COO lists, no
+    point or coefficient through a Python-int conversion. pb is the
+    circuit's Protoboard, or a function that makes it, called only on a
+    miss. Returns (DevicePK, VerificationKey, generated). timings, if
     given, gains seconds by phase (_keygen's, then build: coefficients and
     DevicePK; write: npz and vk written and read back)."""
-    base = os.path.join(cache_dir, f"{name}_s{seed}")
-    npz = f"{base}.v{K.CACHE_VERSION}.npz"
-    vk_path = f"{base}_vk.txt"
+    npz, vk_path = cache_paths(name, seed, cache_dir)
     generated = not (os.path.exists(npz) and os.path.exists(vk_path))
     if generated:
+        if callable(pb):
+            pb = pb()
         toxic = random.Random(seed)
         kg = _keygen(pb, device, lambda: toxic.randrange(1, R_MOD), timings)
         t0 = time.perf_counter()

@@ -540,12 +540,15 @@ def msm(curve: str, points, scalars, c: int, lanes: int, blind=None):
                       lanes, blind)
 
 
-def msm_stream(curve: str, points, stream, c: int, lanes: int, blind=None):
+def msm_stream(curve: str, points, stream, c: int, lanes: int, blind=None,
+               step=None):
     """msm from its live stream (keys, point ids, DROP) on: the
     accumulation, reduction and fold, none of which waits for the
-    device."""
+    device. step, if given, is called with each step's name (accumulate,
+    combine, triangle, fold) once its work is queued: msmbench's split."""
     W = n_windows(c)
     nb = 1 << c
+    step = step or (lambda name: None)
     keys, pids, drop = stream
     if keys.shape[0] == 0:      # every scalar 0 or every point infinite
         res = tuple(t[0] for t in _zeros_pts(curve, 1, keys.device))
@@ -555,13 +558,17 @@ def msm_stream(curve: str, points, stream, c: int, lanes: int, blind=None):
     keys, pids = pad_stream(keys, pids, drop, T, L)
     acc, meta, head, bkt, cnt = accumulate(curve, keys, pids, points, blind,
                                            T, L, drop)
+    step("accumulate")
     cnt = cnt.to(torch.int64)
     combine(curve, *boundary_partials(curve, acc, meta, head), bkt, cnt,
             drop)
-    res = fold(curve, c, triangle(curve, bkt, W, nb))
-    if blind is None:
-        return res
-    return res + (window_counts(cnt, W, nb),)
+    wts = None if blind is None else window_counts(cnt, W, nb)
+    step("combine")
+    win = triangle(curve, bkt, W, nb)
+    step("triangle")
+    res = fold(curve, c, win)
+    step("fold")
+    return res if blind is None else res + (wts,)
 
 
 # ---------------------------------------------------------------------------

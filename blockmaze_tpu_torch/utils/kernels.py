@@ -142,6 +142,12 @@ def host_library(source: str) -> str:
     return _locked_build(lib, make)
 
 
+def library_path() -> str:
+    """Where build() puts the kernel library of the current sources (it
+    exists once they have been built)."""
+    return _hashed_path("libbmkernels", _sources(), NVCC_FLAGS)
+
+
 def build(verbose: bool = False) -> str:
     """Compile csrc/*.cu into _build/ if that exact source set has not been
     built yet; return the library path. The .cu files compile in parallel
@@ -149,7 +155,7 @@ def build(verbose: bool = False) -> str:
     lock on _build/build.lock (released when this process ends, however it
     ends)."""
     srcs = _sources()
-    lib = _hashed_path("libbmkernels", srcs, NVCC_FLAGS)
+    lib = library_path()
     return _locked_build(lib, lambda: _compile(srcs, lib, verbose))
 
 

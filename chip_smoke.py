@@ -3,8 +3,9 @@ on four.
 
     python3 chip_smoke.py                # every phase; one card is enough
     python3 chip_smoke.py --mesh-only    # build, mint and deposit20 on one
-                                         # card, then phases 7 and 8 (for a
-                                         # call on four cards)
+                                         # card, then phases 7 and 8 and
+                                         # phase 10's scaling (for a call
+                                         # on four cards)
 
 Phases, each timed; any failure raises and the script exits nonzero:
   0. build the CUDA kernels from blockmaze_tpu_torch/csrc (nvcc, sm_90a)
@@ -55,7 +56,8 @@ Phases, each timed; any failure raises and the script exits nonzero:
      kernels at c = 13, W = 20 against their plain versions on the proof's
      own A and H streams;
   5. the zktx service and the node lifecycle with real proofs, at Merkle
-     depth 8 and then 20 (scripts/lifecycle.py on the port): ZkTx on
+     depth 8 and then 20 (scripts/lifecycle.py on the port, through its
+     driver's run_lifecycle): ZkTx on
      cuda:0 over phases 3-4's keys, warm(), mint 100 -> send 40 -> deposit
      -> redeem 25 between two Nodes, every proof verified at pool admission
      and at block import, the balances, a double deposit rejected and a
@@ -107,9 +109,14 @@ Phases, each timed; any failure raises and the script exits nonzero:
      proofs at (1, 2) equal to the single-card proof, one at random (r,
      s) equal on every rank and verified, the launches per rank against
      process_mesh_path(k), the phases and torch.cuda.max_memory_allocated
-     after the Prover's init beside the single-card Prover's. A rank that
-     exits nonzero or overruns RANK_TIMEOUT fails the script. A `process
-     mesh summary:` line holds phase 8's numbers;
+     after the Prover's init beside the single-card Prover's; then the
+     mint Prover's prove_batch of the parent's BATCH_RS witnesses
+     (scripts.batch.batch_instance), each proof equal to the parent's
+     single-card proof at its (r, s) and verified, the launches against
+     process_mesh_path(k), and the host's processes while every rank's
+     combine pool is up. A rank that exits nonzero or overruns
+     RANK_TIMEOUT fails the script. A `process mesh summary:` line holds
+     phase 8's numbers;
   9. the reference's text keys (TEXT_KEY_CIRCUITS: mint and deposit at
      Merkle depth 8, the two extremes of key size): phases 3-4's key
      written once with the port's io.write_proving_key into
@@ -126,12 +133,30 @@ Phases, each timed; any failure raises and the script exits nonzero:
      upload, each kernel's CUDA-event ms beside its bound at these shapes,
      coefficients, npz write, total) and the Python reader's seconds per
      point on a sample of the file's first points (READER_SAMPLE), in a
-     `text key summary:` line per circuit. It runs after phase 6.
+     `text key summary:` line per circuit. It runs after phase 6;
+ 10. the port's drivers (blockmaze_tpu_torch/scripts), after phase 8:
+     first msm_round, msm_combine, msm_triangle and msm_fold against their
+     plain versions at msmbench's shapes (MSMBENCH_RUNS, c = 13,
+     pippenger.MAX_LANES lanes) on its own inputs, blinded as it runs
+     them (the kernels line keeps these times under "shapes"); then each
+     driver started as `python -m blockmaze_tpu_torch.scripts.<name>`
+     from the repository's root with _build/ and _keys/ warm: msmbench
+     --phases at 2^19 G1 and 2^18 G2 (their closed forms), warmstart mint (a fresh
+     process), e2e mint, batch --circuit mint --batch 8 and prewarm
+     --circuits mint (every proof verified; phase 5 is lifecycle's
+     run_lifecycle at depths 8 and 20), and
+     scaling on a process mesh of 2 ranks (one a card over nccl when two
+     or more cards are visible, else both on cuda:0 over gloo; with four
+     cards also of 4) against its closed form. Each must exit 0 within
+     DRIVER_TIMEOUT, print its OK line (DRIVER_OK) and end with a JSON
+     line whose launches hold its path's kernels; a `drivers summary:`
+     line keeps their numbers. With --mesh-only, scaling alone.
 Each circuit's launch counts are reset just before its keygen and read
 just after it, and reset again just before its three proofs and read just
 after them; phase 5 reads them around each transaction and phase 6 around
-each batch, and phase 9 around each text key's load: each path must
-launch each of its kernels. The keygen path
+each batch, and phase 9 around each text key's load; each driver of phase
+10 resets them before its measured work and reports them in its JSON line:
+each path must launch each of its kernels. The keygen path
 (KEYGEN_PATH): one fixed_base_exp per query (six) and one
 mul_elementwise (the coefficients' Montgomery form), never a batched
 point kernel (add, double, mixed adds). Each keygen's summary splits its
@@ -192,7 +217,6 @@ under 4% and dependent on the point, is left out).
 from __future__ import annotations
 
 import functools
-import hashlib
 import json
 import os
 import pickle
@@ -206,7 +230,10 @@ import time
 import numpy as np
 import torch
 
-SEED = 20261016
+try:    # the seeded keys' seed and cache, shared with the port's drivers
+    from blockmaze_tpu_torch.scripts._common import KEY_CACHE, SEED
+except ModuleNotFoundError:     # not in a checkout: require_gpu says so
+    KEY_CACHE = SEED = None
 # key_digests(...)["all"] of each circuit's keys for SEED, as keygen made
 # them with the batched point kernels (add, mixed_add, mixed_add_noexc)
 # and the host affine conversion before fixed_base_exp replaced both:
@@ -310,6 +337,20 @@ MESH_PATH = {
 PROCESS_RANKS = 4
 RANK_FLAG = "--process-mesh-rank"
 RANK_TIMEOUT = 480
+# and each rank's prove_batch: BATCH_CIRCUIT's witnesses
+# scripts.batch.batch_instance(i) at (r, s) = BATCH_RS[i]
+BATCH_CIRCUIT = "mint"
+BATCH_RS = [(1, 51), (2, 52)]
+# Phase 10: the line each driver prints when its run held, and the most
+# seconds a driver's run may take
+DRIVER_OK = {"msmbench": "MSMBENCH OK", "warmstart": "WARMSTART OK",
+             "e2e": "E2E OK", "batch": "BATCH OK", "prewarm": "PREWARM DONE",
+             "scaling": "SCALING OK"}
+DRIVER_TIMEOUT = 300
+# msmbench's runs, (curve, log2 points) at window MSMBENCH_WINDOW, whose
+# MSM kernels phase 10 holds against their plain versions on its inputs
+MSMBENCH_RUNS = [("g1", 19), ("g2", 18)]
+MSMBENCH_WINDOW = 13
 
 
 def process_mesh_path(ranks: int) -> dict:
@@ -446,6 +487,11 @@ def main():
     t0 = time.perf_counter()
     path_counts += phase8(summary7)
     log(f"phase 8 process mesh: {time.perf_counter() - t0:.1f}s")
+
+    # ---- phase 10: the port's drivers -------------------------------------
+    t0 = time.perf_counter()
+    path_counts += phase10(mesh_only, dev, report)
+    log(f"phase 10 drivers: {time.perf_counter() - t0:.1f}s")
     for name in kn.K:
         report[name]["launches"] = sum(c.get(name, 0) for c in path_counts)
     log(f"total: {time.perf_counter() - t_all:.1f}s")
@@ -556,17 +602,22 @@ def nbytes(*tensors) -> int:
 # Phase 1: each kernel against its plain version on the card
 # ---------------------------------------------------------------------------
 
-def record_kernel(report, key, res, products, moved, primary=False):
+def record_kernel(report, key, res, products, moved, primary=False,
+                  tag=None):
     """Keep the first shape's times and bound (or this one's, if primary);
-    every shape's error."""
+    every shape's error; a tagged shape's times and bound under
+    "shapes"[tag] beside them."""
     err, ms, pms = res
     b_ms, b_by = bound(products, moved)
     log(f"  {'':<16} bound {b_ms:.5f} ms ({b_by}: {products} products, "
         f"{moved} bytes)")
     r = report[key]
     r["max_abs_err"] = max(err, r.get("max_abs_err", 0))
-    if primary or "ms" not in r:
-        r.update(ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by)
+    times = dict(ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by)
+    if tag is not None:
+        r.setdefault("shapes", {})[tag] = times
+    elif primary or "ms" not in r:
+        r.update(times)
 
 
 def check_kernel(name, shape, kern, plain, reps=5):
@@ -1198,7 +1249,7 @@ def run_circuit(name, dev):
     log(f"  {name} circuit: {pb.num_variables} variables, "
         f"{len(pb.constraints)} constraints, satisfied "
         f"({summary['synthesis_s']}s)")
-    cache = key_cache()
+    cache = KEY_CACHE
     path_counts = []
     dpk, vk, generated, kg = keygen(pb, name, cache, dev)
     summary.update(kg)
@@ -1330,22 +1381,11 @@ def check_keygen_counts(counts):
 
 
 def key_digests(cache, name) -> dict:
-    """sha256 (first 16 hex digits) of every array of the circuit's npz
-    DevicePK (its dtype, shape and bytes) and of the vk file, and one
-    sha256 over all of them ("all")."""
-    base = os.path.join(cache, f"{name}_s{SEED}")
-    out = {}
-    with np.load(f"{base}.v1.npz") as z:
-        for k in sorted(z.files):
-            a = np.ascontiguousarray(z[k])
-            h = hashlib.sha256(f"{a.dtype.str} {a.shape} ".encode())
-            h.update(a.tobytes())
-            out[k] = h.hexdigest()[:16]
-    with open(f"{base}_vk.txt", "rb") as f:
-        out["vk"] = hashlib.sha256(f.read()).hexdigest()[:16]
-    out["all"] = hashlib.sha256(json.dumps(out, sort_keys=True)
-                                .encode()).hexdigest()
-    return out
+    """_common.key_digests of the circuit's npz DevicePK and vk file in
+    `cache`."""
+    from blockmaze_tpu_torch.groth16 import generator
+    from blockmaze_tpu_torch.scripts import _common as cm
+    return cm.key_digests(*generator.cache_paths(name, SEED, cache))
 
 
 def write_text_key(npz, txt, dev):
@@ -1443,17 +1483,17 @@ def phase9(name, dev, report):
     path's launch counts."""
     import shutil
     from blockmaze_tpu_torch.curves import decompress as dc
-    from blockmaze_tpu_torch.groth16 import keys, verifier
+    from blockmaze_tpu_torch.groth16 import generator, keys, verifier
     from blockmaze_tpu_torch.groth16.prover import Prover
     from blockmaze_tpu_torch.ntt import pntt
     from blockmaze_tpu_torch.utils import kernels as kn
     vk, primary, aux, want = TEXT_RUNS[name]
-    cache, base = key_cache(), f"{name}_s{SEED}"
-    txt = os.path.join(cache, "text", f"{base}.txt")
+    npz, vk_path = generator.cache_paths(name, SEED, KEY_CACHE)
+    txt = os.path.join(KEY_CACHE, "text", f"{name}_s{SEED}.txt")
     summary = {"circuit": name}
     if not os.path.exists(txt):
         t0 = time.perf_counter()
-        write_text_key(os.path.join(cache, f"{base}.v1.npz"), txt, dev)
+        write_text_key(npz, txt, dev)
         summary["write_text_s"] = round(time.perf_counter() - t0, 2)
         log(f"  text key written: {txt} ({summary['write_text_s']}s)")
     summary["file_mb"] = round(os.path.getsize(txt) / 2**20, 1)
@@ -1477,7 +1517,7 @@ def phase9(name, dev, report):
         return out
 
     with tempfile.TemporaryDirectory(prefix="bm_textkey_") as tmp:
-        shutil.copy(os.path.join(cache, f"{base}_vk.txt"), tmp)
+        shutil.copy(vk_path, tmp)
         dc.decompress_raw, pntt.mul_elementwise = timed_raw, kept_mul
         kn.reset_counts()
         t0 = time.perf_counter()
@@ -1801,159 +1841,31 @@ def lane_sweep(prover):
 # Phase 5: the zktx service and the node lifecycle with real proofs
 # ---------------------------------------------------------------------------
 
-SERVICE_CIRCUITS = ["mint", "send", "deposit", "redeem"]
-
-
-def key_cache() -> str:
-    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        "blockmaze_tpu_torch", "_keys")
-
-
-def service_keys(depth: int) -> str:
-    """A key directory for ZkTx at Merkle depth `depth`: <name>pk.v1.npz
-    and <name>vk.txt linked to the keys phases 3-4 cached (deposit20's as
-    deposit at depth 20); keys.load_or_build takes the npz when the text
-    key is absent."""
-    cache = key_cache()
-    kdir = os.path.join(cache, f"zktx_d{depth}")
-    os.makedirs(kdir, exist_ok=True)
-    for name in SERVICE_CIRCUITS:
-        src = "deposit20" if name == "deposit" and depth == 20 else name
-        for have, want in ((".v1.npz", "pk.v1.npz"), ("_vk.txt", "vk.txt")):
-            target = os.path.join(cache, f"{src}_s{SEED}{have}")
-            if not os.path.exists(target):
-                raise FileNotFoundError(f"{target}: phases 3-4 cache it")
-            link = os.path.join(kdir, name + want)
-            if os.path.lexists(link):
-                os.remove(link)
-            os.symlink(target, link)
-    return kdir
-
-
-def instrument(svc):
-    """Wrap the service's gen_*_proof and verify_*_proof and each prover's
-    prove (instance attributes over the methods) to record, per call, its
-    seconds, its result (ok) and for prove the prover's phases. Returns
-    the record lists."""
-    rec = {"gen": [], "prove": [], "verify": []}
-
-    def wrap(obj, attr, key, prover=None):
-        fn = getattr(obj, attr)
-
-        def timed_call(*a, **k):
-            t0 = time.perf_counter()
-            out = fn(*a, **k)
-            entry = {"s": time.perf_counter() - t0, "ok": out}
-            if prover is not None:
-                entry["phases"] = dict(prover.timings)
-            rec[key].append(entry)
-            return out
-
-        setattr(obj, attr, timed_call)
-
-    for name in SERVICE_CIRCUITS:
-        prover = svc.circuits[name].prover
-        wrap(prover, "prove", "prove", prover)
-        wrap(svc, f"gen_{name}_proof", "gen")
-        wrap(svc, f"verify_{name}_proof", "verify")
-    return rec
-
-
 def phase5(depth: int, dev):
-    """scripts/lifecycle.py on the port: ZkTx on cuda:0 at Merkle depth
-    `depth` over phases 3-4's keys, warm(), a Network with alice and bob
-    Nodes in temporary datadirs, mint 100 -> send 40 -> deposit -> redeem
-    25 with a block mined after each; every proof verified at pool
-    admission and at block import; the balances of lifecycle.py:73-76; a
-    double deposit rejected; alice's wallet reloaded from its datadir. Per
-    transaction: synthesis, prove (with phases) and verify seconds, and the
-    proof's launches against its domain kind's prove path. Returns the
-    transactions' launch counts."""
-    import tempfile
-    from blockmaze_tpu_torch.node import Network, Node
-    from blockmaze_tpu_torch.node.node import NodeError
-    from blockmaze_tpu_torch.utils import kernels as kn
+    """scripts/lifecycle.py on the port, through the port's driver
+    (blockmaze_tpu_torch.scripts.lifecycle): ZkTx on cuda:0 at Merkle
+    depth `depth` over phases 3-4's keys, warm(), then run_lifecycle: a
+    Network with alice and bob Nodes in temporary datadirs, mint 100 ->
+    send 40 -> deposit -> redeem 25 with a block mined after each; every
+    proof verified at pool admission and at block import; the balances of
+    lifecycle.py:73-76; a double deposit rejected; alice's wallet reloaded
+    from its datadir. Per transaction: synthesis, prove (with phases) and
+    verify seconds, and the proof's launches against its domain kind's
+    prove path. Returns the transactions' launch counts."""
+    from blockmaze_tpu_torch.scripts import lifecycle
     from blockmaze_tpu_torch.zktx.api import ZkTx
 
     t0 = time.perf_counter()
-    svc = ZkTx(service_keys(depth), merkle_depth=depth, device=dev)
+    svc = ZkTx(lifecycle.service_keys(depth), merkle_depth=depth,
+               device=dev)
     svc.warm()
     torch.cuda.synchronize()
     log(f"  ZkTx(depth {depth}).warm(): {time.perf_counter() - t0:.1f}s "
         f"(keys, Provers, kernel library)")
     kinds = {n: domain_kind(svc.circuits[n].prover.domain)
-             for n in SERVICE_CIRCUITS}
-    rec = instrument(svc)
-    path_counts, summary = [], []
-    with tempfile.TemporaryDirectory(prefix="bm_lifecycle_") as tmp:
-        net = Network(svc, seed=42)
-        da, db = os.path.join(tmp, "a"), os.path.join(tmp, "b")
-        alice, bob = Node(net, da), Node(net, db)
-        net.fund(alice.address, 500)
-        net.fund(bob.address, 10)
-
-        def tx(label, name, fn, mine=True):
-            for v in rec.values():
-                v.clear()
-            kn.reset_counts()
-            t0 = time.perf_counter()
-            try:
-                out = fn()
-                blk = net.mine_block() if mine else None
-            finally:
-                torch.cuda.synchronize()
-                path_counts.append(kn.counts())
-                wall = time.perf_counter() - t0
-            if len(rec["gen"]) != 1 or len(rec["prove"]) != 1:
-                raise AssertionError(f"{label}: {len(rec['prove'])} proofs")
-            if mine and [v["ok"] for v in rec["verify"]] != [True, True]:
-                raise AssertionError(f"{label}: verified {rec['verify']}")
-            check_prove_counts(kinds[name], path_counts[-1], 1)
-            p = rec["prove"][0]
-            row = {"tx": label, "synthesis_s": round(
-                rec["gen"][0]["s"] - p["s"], 3), "prove_s": round(p["s"], 4),
-                "phases": {k: round(v, 4) for k, v in p["phases"].items()},
-                "verify_s": [round(v["s"], 3) for v in rec["verify"]],
-                "wall_s": round(wall, 2)}
-            summary.append(row)
-            log(f"  [{label}] synthesis {row['synthesis_s']}s, prove "
-                f"{row['prove_s']}s phases {json.dumps(row['phases'])}, "
-                f"verify {row['verify_s']}s"
-                + (f", block #{blk['number']} cmts={len(blk['cmt'])}"
-                   if blk else ""))
-            return out
-
-        tx("mint alice +100", "mint", lambda: alice.send_mint_transaction(100))
-        h_send = tx("send alice->bob 40", "send",
-                    lambda: alice.send_send_transaction(
-                        40, bob.get_pub_key_rlp()))
-        tx("deposit bob claims", "deposit",
-           lambda: bob.send_deposit_transaction(h_send))
-        tx("redeem bob -25", "redeem", lambda: bob.send_redeem_transaction(25))
-        ba, bb = alice.get_balance2(), bob.get_balance2()
-        log(f"  alice: {ba}")
-        log(f"  bob:   {bb}")
-        if (ba["wallet_value"], bb["wallet_value"], net.balance_of(
-                bob.address), net.balance_of(alice.address)) != \
-                (60, 15, 35, 400):
-            raise AssertionError("lifecycle balances differ from "
-                                 "scripts/lifecycle.py's")
-
-        def double_deposit():
-            try:
-                bob.send_deposit_transaction(h_send)
-            except NodeError as e:
-                log(f"  double deposit rejected: {e}")
-                return
-            raise AssertionError("double deposit was not rejected")
-
-        tx("double deposit (rejected)", "deposit", double_deposit,
-           mine=False)
-        if Node(net, da).wallet.sequence_number_after.value != 60:
-            raise AssertionError("alice's wallet did not reload from its "
-                                 "datadir")
-        log("  alice's wallet reloaded from its datadir: value 60")
-    log(f"  lifecycle summary: {json.dumps({'depth': depth, 'txs': summary})}")
+             for n in lifecycle.SERVICE_CIRCUITS}
+    path_counts, _ = lifecycle.run_lifecycle(
+        svc, lambda name, counts: check_prove_counts(kinds[name], counts, 1))
     return path_counts
 
 
@@ -1962,47 +1874,6 @@ def phase5(depth: int, dev):
 # ---------------------------------------------------------------------------
 
 BATCHES = {"mint": (1, 2, 4, 8), "deposit": (1, 4)}
-
-
-def batch_instance(name: str, i: int):
-    """Witness i of a batch of `name` (mint, or deposit at depth 8): values
-    and randomness varied per slot as scripts/batch.py varies mint's; the
-    witness alone, as the service synthesises it. (primary, aux)."""
-    from blockmaze_tpu_torch.circuits.deposit import DepositGadget
-    from blockmaze_tpu_torch.circuits.mint import MintGadget
-    from blockmaze_tpu_torch.crypto import notes as NT
-    from blockmaze_tpu_torch.merkle import incremental as MK
-    from blockmaze_tpu_torch.r1cs.protoboard import Protoboard
-    sk = NT.uint256_from_hex("1")
-    r_old = NT.uint256_from_hex(f"{123456 + i:x}")
-    r = NT.uint256_from_hex(f"{123 + i:x}")
-    pb = Protoboard()
-    if name == "mint":
-        note_old = NT.Note(6 + i, NT.compute_prf(sk, r_old), r_old)
-        note = NT.Note(13 + i, NT.compute_prf(sk, r), r)
-        MintGadget(pb).generate_witness(note_old, note, note_old.cm(),
-                                        note.cm(), 7, sk)
-    else:
-        r_s = NT.uint256_from_hex(f"{789 + i:x}")
-        pk_recv = int("123", 16).to_bytes(20, "little")
-        note_old = NT.Note(255 + i, NT.compute_prf(sk, r_old), r_old)
-        note_s = NT.NoteS(9, pk_recv, r_s, NT.uint256_from_hex("123"))
-        note = NT.Note(264 + i, NT.compute_prf(sk, r), r)
-        tree = MK.IncrementalMerkleTree(MK.DEPTH)
-        wit = None
-        for k in range(16):
-            leaf = note_s.cm() if k == 9 else NT.uint256_from_hex(
-                f"{k + 1 + 16 * i:x}")
-            if wit is not None:
-                wit.append(leaf)
-            else:
-                tree.append(leaf)
-            if k == 9:
-                wit = tree.witness()
-        DepositGadget(pb, depth=MK.DEPTH).generate_witness(
-            note_s, note_old, note, note_s.cm(), note_old.cm(), note.cm(),
-            wit.root(), wit.path(), NT.compute_prf(sk, r_s), sk)
-    return pb.primary_input(), pb.auxiliary_input()
 
 
 def phase6(name: str, dev):
@@ -2016,6 +1887,8 @@ def phase6(name: str, dev):
     B = 4 batch once more under torch.profiler for the device's busy
     share. Returns the batches' launch counts."""
     from blockmaze_tpu_torch.groth16 import verifier
+    from blockmaze_tpu_torch.scripts import lifecycle
+    from blockmaze_tpu_torch.scripts.batch import batch_instance
     from blockmaze_tpu_torch.utils import kernels as kn
     from blockmaze_tpu_torch.zktx.api import ZkTx
 
@@ -2023,7 +1896,8 @@ def phase6(name: str, dev):
     insts = [batch_instance(name, i) for i in range(4)]
     log(f"  {name}: 4 witnesses in {time.perf_counter() - t0:.1f}s "
         f"(not timed below)")
-    ctx = ZkTx(service_keys(8), merkle_depth=8, device=dev).circuits[name]
+    ctx = ZkTx(lifecycle.service_keys(8), merkle_depth=8,
+               device=dev).circuits[name]
     prover, vk = ctx.prover, ctx.vk
     kind = domain_kind(prover.domain)
     prover.prove(*insts[0])
@@ -2445,6 +2319,7 @@ def mesh_batch(prover, summary):
     """prove_batch of two mint witnesses on the mesh Prover: each proof
     verified, the launches within MESH_PATH. Returns [its launches]."""
     from blockmaze_tpu_torch.groth16 import verifier
+    from blockmaze_tpu_torch.scripts.batch import batch_instance
     from blockmaze_tpu_torch.utils import kernels as kn
     vk = RUNS["mint"][1]
     insts = [batch_instance("mint", i) for i in range(2)]
@@ -2509,30 +2384,26 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_ranks(work, devices):
-    """Start one process per device (this script with RANK_FLAG) and wait
-    for all; any rank that exits nonzero, or the RANK_TIMEOUT, stops
-    every rank and fails. Prints each rank's log; returns their result
-    dicts in rank order."""
-    port = free_port()
+def run_procs(cmds, envs, logs, timeout):
+    """Start each command (its output into its log file, its environment
+    os.environ updated by its env) and wait for all; any that exits
+    nonzero, or the timeout, stops every one and fails with the exit codes
+    (or "timeout")."""
     procs = []
     try:
-        for r, d in enumerate(devices):
-            out = open(os.path.join(work, f"rank{r}.log"), "w")
+        for cmd, env, path in zip(cmds, envs, logs):
+            out = open(path, "w")
             procs.append((out, subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), RANK_FLAG, work,
-                 d], stdout=out, stderr=subprocess.STDOUT,
-                env={**os.environ, "MASTER_ADDR": "127.0.0.1",
-                     "MASTER_PORT": str(port),
-                     "WORLD_SIZE": str(len(devices)), "RANK": str(r),
-                     "LOCAL_RANK": str(r)})))
+                cmd, stdout=out, stderr=subprocess.STDOUT,
+                cwd=os.path.dirname(os.path.abspath(__file__)),
+                env={**os.environ, **env})))
         t0 = time.perf_counter()
         while True:
             rcs = [p.poll() for _, p in procs]
             if all(rc == 0 for rc in rcs) or any(rc not in (None, 0)
                                                  for rc in rcs):
                 break
-            if time.perf_counter() - t0 > RANK_TIMEOUT:
+            if time.perf_counter() - t0 > timeout:
                 rcs = ["timeout" if rc is None else rc for rc in rcs]
                 break
             time.sleep(0.2)
@@ -2542,14 +2413,31 @@ def run_ranks(work, devices):
                 p.kill()
             p.wait()
             out.close()
-    for r in range(len(procs)):
-        with open(os.path.join(work, f"rank{r}.log")) as f:
+    return rcs
+
+
+def run_ranks(work, devices):
+    """Start one process per device (this script with RANK_FLAG) and wait
+    for all; any rank that exits nonzero, or the RANK_TIMEOUT, stops
+    every rank and fails. Prints each rank's log; returns their result
+    dicts in rank order."""
+    port = free_port()
+    logs = [os.path.join(work, f"rank{r}.log") for r in range(len(devices))]
+    rcs = run_procs(
+        [[sys.executable, os.path.abspath(__file__), RANK_FLAG, work, d]
+         for d in devices],
+        [{"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+          "WORLD_SIZE": str(len(devices)), "RANK": str(r),
+          "LOCAL_RANK": str(r)} for r in range(len(devices))],
+        logs, RANK_TIMEOUT)
+    for r, path in enumerate(logs):
+        with open(path) as f:
             for line in f:
                 log(f"  [rank {r}] {line.rstrip()}")
     if any(rc != 0 for rc in rcs):
         raise RuntimeError(f"process mesh ranks exited {rcs}")
     outs = []
-    for r in range(len(procs)):
+    for r in range(len(devices)):
         with open(os.path.join(work, f"rank{r}.json")) as f:
             outs.append(json.load(f))
     return outs
@@ -2558,6 +2446,7 @@ def run_ranks(work, devices):
 def phase8(summary7):
     """The process mesh (docstring, phase 8): the parent's half. Returns
     every rank's launches on its main path."""
+    from blockmaze_tpu_torch.scripts.batch import batch_instance
     from blockmaze_tpu_torch.utils import kernels as kn
     devices, backend = process_placement()
     log(f"  torch.cuda.device_count() = {torch.cuda.device_count()}; "
@@ -2570,6 +2459,12 @@ def phase8(summary7):
             _, _, primary, aux, proof, _, _ = RUNS[name]
             with open(os.path.join(work, f"{name}.pkl"), "wb") as f:
                 pickle.dump((primary, aux, (proof.a, proof.b, proof.c)), f)
+        insts = [batch_instance(BATCH_CIRCUIT, i)
+                 for i in range(len(BATCH_RS))]
+        want = [RUNS[BATCH_CIRCUIT][0].prove(*inst, r=r, s=s)
+                for inst, (r, s) in zip(insts, BATCH_RS)]
+        with open(os.path.join(work, "batch.pkl"), "wb") as f:
+            pickle.dump((insts, [(p.a, p.b, p.c) for p in want]), f)
         t0 = time.perf_counter()
         outs = run_ranks(work, devices)
         log(f"  {len(devices)} ranks: {time.perf_counter() - t0:.1f}s")
@@ -2602,8 +2497,19 @@ def phase8(summary7):
             f"process mesh rank 0 {json.dumps(outs[0][name]['proofs'][1])}"
             f"; Prover memory single {json.dumps(single[6])}, a rank "
             f"{json.dumps(outs[0][name]['mem'])}")
+    batches = [o[BATCH_CIRCUIT]["batch"] for o in outs]
+    summary["batch"] = {"B": len(BATCH_RS), "s": [b["s"] for b in batches],
+                        "host_processes": len(outs) + sum(
+                            b["workers"] for b in batches),
+                        "workers": [b["workers"] for b in batches]}
+    log(f"  {BATCH_CIRCUIT} prove_batch of {len(BATCH_RS)} on every rank: "
+        f"each proof equal to the single-card proof at its (r, s); "
+        f"seconds {summary['batch']['s']}; host processes during the batch "
+        f"{summary['batch']['host_processes']} ({len(outs)} ranks and their "
+        f"{summary['batch']['workers']} combine workers)")
     log(f"  process mesh summary: {json.dumps(summary)}")
-    return [o[name]["launches"] for o in outs for name in MESH_CIRCUITS]
+    return ([o[name]["launches"] for o in outs for name in MESH_CIRCUITS]
+            + [b["launches"] for b in batches])
 
 
 def rank_log(rank, *a):
@@ -2722,15 +2628,15 @@ def rank_prove(name, mesh, work):
     random (r, s), verified; the launches per proof against
     process_mesh_path; the Prover's device memory."""
     import torch.distributed as dist
+    from blockmaze_tpu_torch.groth16 import generator, verifier
     from blockmaze_tpu_torch.groth16 import keys as K
-    from blockmaze_tpu_torch.groth16 import verifier
     from blockmaze_tpu_torch.groth16.prover import Prover
     from blockmaze_tpu_torch.parallel import distributed
     from blockmaze_tpu_torch.serialization import libsnark_io as io
     from blockmaze_tpu_torch.utils import kernels as kn
-    base = os.path.join(key_cache(), f"{name}_s{SEED}")
-    dpk = K.load_device_pk(f"{base}.v{K.CACHE_VERSION}.npz")
-    vk = io.load_verification_key(f"{base}_vk.txt")
+    npz, vk_path = generator.cache_paths(name, SEED, KEY_CACHE)
+    dpk = K.load_device_pk(npz)
+    vk = io.load_verification_key(vk_path)
     with open(os.path.join(work, f"{name}.pkl"), "rb") as f:
         primary, aux, want = pickle.load(f)
     dev = mesh.local
@@ -2768,12 +2674,53 @@ def rank_prove(name, mesh, work):
         raise AssertionError(f"{name} process mesh random proof rejected")
     rank_log(mesh.rank, f"{name}: proofs 0 and 1 equal the single-card "
              f"proof at (1, 2); the random one verified")
+    out = {"domain": kind, "init_s": round(init_s, 3), "mem": mem,
+           "proofs": times, "launches": counts,
+           "random_proof": [str(v) for v in (proofs[2].a, proofs[2].b,
+                                             proofs[2].c)]}
+    if name == BATCH_CIRCUIT:
+        out["batch"] = rank_batch(prover, vk, mesh, work)
     del prover
     torch.cuda.empty_cache()
-    return {"domain": kind, "init_s": round(init_s, 3), "mem": mem,
-            "proofs": times, "launches": counts,
-            "random_proof": [str(v) for v in (proofs[2].a, proofs[2].b,
-                                              proofs[2].c)]}
+    return out
+
+
+def rank_batch(prover, vk, mesh, work):
+    """prove_batch on the process-mesh Prover of the parent's batch
+    witnesses at BATCH_RS: each proof equal to the parent's single-card
+    proof at its (r, s) and verified, the launches per proof against
+    process_mesh_path; this rank's worker processes (prove_batch's host
+    combine pool) counted while every rank's pool is up."""
+    import multiprocessing
+    import torch.distributed as dist
+    from blockmaze_tpu_torch.groth16 import verifier
+    from blockmaze_tpu_torch.utils import kernels as kn
+    with open(os.path.join(work, "batch.pkl"), "rb") as f:
+        insts, want = pickle.load(f)
+    rs, ss = zip(*BATCH_RS[:len(insts)])
+    dist.barrier()
+    kn.reset_counts()
+    t0 = time.perf_counter()
+    proofs = prover.prove_batch(insts, rs=list(rs), ss=list(ss))
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize(mesh.local)
+    counts = kn.counts()
+    workers = len(multiprocessing.active_children())
+    dist.barrier()      # every rank's pool is up until here
+    prover.close()
+    check_prove_counts(domain_kind(prover.domain), counts, len(insts),
+                       process_mesh_path(mesh.size))
+    for i, (proof, w) in enumerate(zip(proofs, want)):
+        if (proof.a, proof.b, proof.c) != tuple(w):
+            raise AssertionError(f"process mesh batch proof {i} != the "
+                                 f"single-card proof at {BATCH_RS[i]}")
+        if not verifier.verify(vk, insts[i][0], proof):
+            raise AssertionError(f"process mesh batch proof {i} rejected")
+    rank_log(mesh.rank, f"prove_batch of {len(insts)} {BATCH_CIRCUIT} "
+             f"witnesses at {BATCH_RS[:len(insts)]}: {dt:.3f}s (starts the "
+             f"worker processes), each equal to the single-card proof and "
+             f"verified; {workers} worker processes on this rank")
+    return {"s": round(dt, 3), "workers": workers, "launches": counts}
 
 
 def process_mesh_rank(work, device):
@@ -2802,6 +2749,145 @@ def process_mesh_rank(work, device):
         json.dump(out, f)
     dist.barrier()
     dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the port's drivers (blockmaze_tpu_torch/scripts)
+# ---------------------------------------------------------------------------
+
+def driver_runs():
+    """(label, driver, its arguments, the kernels its path must launch,
+    rank devices or None) of each run of phase 10: msmbench's phase split
+    at 2^19 G1 and 2^18 G2, warmstart, e2e, batch and prewarm on mint
+    (phases 3-4 prove the other circuits; phase 5 runs lifecycle's
+    run_lifecycle), and scaling on a process mesh of 2 ranks (one a card
+    over nccl with two or more cards, else both on cuda:0 over gloo) and,
+    with four cards, of 4."""
+    prove = PROVE_PATH["step"]["launch"]
+    runs = [(f"msmbench {curve}", "msmbench",
+             ["--phases", "--n", str(log_n), "--curve", curve, "--window",
+              str(MSMBENCH_WINDOW)], MSM_KERNELS, None)
+            for curve, log_n in MSMBENCH_RUNS]
+    runs += [("warmstart", "warmstart", ["mint"], prove, None),
+            ("e2e", "e2e", ["mint"], prove, None),
+            ("batch", "batch", ["--circuit", "mint", "--batch", "8"], prove,
+             None),
+            ("prewarm", "prewarm", ["--circuits", "mint"], prove, None)]
+    return runs + scaling_runs()
+
+
+def scaling_runs():
+    cards = torch.cuda.device_count()
+    meshes = ([[f"cuda:{i}" for i in range(k)] for k in (2, 4) if k <= cards]
+              if cards >= 2 else [["cuda:0", "cuda:0"]])
+    return [(f"scaling {len(d)} ranks", "scaling", [], MSM_KERNELS, d)
+            for d in meshes]
+
+
+def run_driver(label, name, args, devices, work):
+    """`python -m blockmaze_tpu_torch.scripts.<name> args` from the repo
+    root, as one process, or with `devices` as one process a device
+    joined by --coordinator/--num-processes/--process-id (rank 0
+    prints). Its output is printed with a [label] prefix; it must exit 0,
+    print its OK line and end with a JSON line, returned with the
+    seconds."""
+    cmd = [sys.executable, "-m", f"blockmaze_tpu_torch.scripts.{name}",
+           *args]
+    tag = label.replace(" ", "_")
+    if devices is None:
+        cmds, logs = [cmd], [os.path.join(work, f"{tag}.log")]
+    else:
+        port = free_port()
+        k = len(devices)
+        # one card a rank: --device cuda, the rank's card from the
+        # hostnames; ranks sharing cuda:0 name it
+        dev = "cuda:0" if len(set(devices)) < k else "cuda"
+        cmds = [cmd + ["--coordinator", f"127.0.0.1:{port}",
+                       "--num-processes", str(k), "--process-id", str(r),
+                       "--device", dev] for r in range(k)]
+        logs = [os.path.join(work, f"{tag}.rank{r}.log") for r in range(k)]
+    t0 = time.perf_counter()
+    rcs = run_procs(cmds, [{}] * len(cmds), logs, DRIVER_TIMEOUT)
+    dt = time.perf_counter() - t0
+    lines = []
+    for r, path in enumerate(logs):
+        with open(path) as f:
+            mine = [line.rstrip() for line in f]
+        for line in mine:
+            log(f"  [{label}{'' if devices is None else f' rank {r}'}] "
+                f"{line}")
+        lines = lines or mine
+    if any(rc != 0 for rc in rcs):
+        raise RuntimeError(f"{label}: exited {rcs}")
+    if not any(line.startswith(DRIVER_OK[name]) for line in lines):
+        raise RuntimeError(f"{label}: no {DRIVER_OK[name]!r} line")
+    return json.loads(lines[-1]), dt
+
+
+def msmbench_parity(dev, report):
+    """The MSM kernels at msmbench's shapes (MSMBENCH_RUNS), on its own
+    inputs (msmbench.inputs: its points, scalars and blind), blinded as it
+    runs them: each against its plain version at pippenger.MAX_LANES
+    lanes (stream_parity); the times go on the kernels line under
+    "shapes"."""
+    from blockmaze_tpu_torch.msm import pippenger as pp
+    from blockmaze_tpu_torch.scripts import msmbench
+    c = MSMBENCH_WINDOW
+    for curve, log_n in MSMBENCH_RUNS:
+        tag = f"msmbench {curve} 2^{log_n} c={c}"
+        pts, _, sc, (_, blind) = msmbench.inputs(1 << log_n, curve, dev)
+        stream_parity(curve, pts, pp.live_stream(pts, sc, c), blind, c, tag,
+                      check_kernel, functools.partial(record_kernel, report,
+                                                      tag=tag))
+        del pts, sc
+        torch.cuda.empty_cache()
+
+
+def phase10(mesh_only: bool, dev, report):
+    """The port's drivers, each its own process after phases 3-4 (and 8)
+    left _build/ and _keys/ warm (docstring, phase 10), msmbench's after
+    its MSM kernels were held against their plain versions at its shapes
+    (msmbench_parity). Returns their paths' launches (each driver resets
+    the counts before its measured work and reports them in its JSON
+    line)."""
+    if not mesh_only:
+        msmbench_parity(dev, report)
+    runs = scaling_runs() if mesh_only else driver_runs()
+    summary, path_counts = {}, []
+    with tempfile.TemporaryDirectory(prefix="bm_drivers_") as work:
+        for label, name, args, kernels, devices in runs:
+            out, dt = run_driver(label, name, args, devices, work)
+            check_launches(f"{label} path", out["launches"], kernels)
+            path_counts.append(out["launches"])
+            log(f"  {label}: {dt:.1f}s, exit 0, its OK line and JSON line")
+            summary[label] = driver_numbers(name, out, devices)
+    log(f"  drivers summary: {json.dumps(summary)}")
+    return path_counts
+
+
+def driver_numbers(name, out, devices):
+    """What the drivers summary keeps of a driver's JSON line; checks the
+    results it reports."""
+    if name == "msmbench":
+        if not out["closed_form"]:
+            raise AssertionError("msmbench: not its closed form")
+        return {k: out[k] for k in ("best_ms", "mpoints_per_s", "phases_ms",
+                                    "phases_sum_ms")}
+    if name == "warmstart":
+        return {"laps_s": out["laps_s"], "library": out["library"]}
+    if name == "e2e":
+        return [{k: r[k] for k in ("circuit", "first_s", "verified",
+                                   "oracle")} for r in out["circuits"]]
+    if name == "batch":
+        return {k: out[k] for k in ("single_s", "batch_s", "s_per_proof",
+                                    "proofs_per_s", "B_x_single_s")}
+    if name == "prewarm":
+        return out["circuits"]
+    backend = "gloo" if len(set(devices)) < len(devices) else "nccl"
+    if not out["equal"] or out["backend"] != backend or \
+            out["processes"] != len(devices):
+        raise AssertionError(f"scaling on {devices}: {out}")
+    return {k: out[k] for k in ("backend", "placement", "points", "rows")}
 
 
 if __name__ == "__main__":
