@@ -144,7 +144,13 @@ Phases, each timed; any failure raises and the script exits nonzero:
      --phases at 2^19 G1 and 2^18 G2 (their closed forms), warmstart mint (a fresh
      process), e2e mint, batch --circuit mint --batch 8 and prewarm
      --circuits mint (every proof verified; phase 5 is lifecycle's
-     run_lifecycle at depths 8 and 20), and
+     run_lifecycle at depths 8 and 20), the bench (bench.py's
+     counterpart) twice: over all four circuits on the seeded keys, and
+     over mint and deposit with --key-dir set to a temporary directory
+     laid out as bench.py's reference_harness/prfKey/ (links to phase
+     9's text keys and the seeded vks: the text-key load on a miss), each
+     circuit's first proof and REPS timed proofs verified and their
+     launches held to PROVE_PATH by domain kind, and
      scaling on a process mesh of 2 ranks (one a card over nccl when two
      or more cards are visible, else both on cuda:0 over gloo; with four
      cards also of 4) against its closed form. Each must exit 0 within
@@ -345,7 +351,7 @@ BATCH_RS = [(1, 51), (2, 52)]
 # seconds a driver's run may take
 DRIVER_OK = {"msmbench": "MSMBENCH OK", "warmstart": "WARMSTART OK",
              "e2e": "E2E OK", "batch": "BATCH OK", "prewarm": "PREWARM DONE",
-             "scaling": "SCALING OK"}
+             "scaling": "SCALING OK", "bench": "BENCH OK"}
 DRIVER_TIMEOUT = 300
 # msmbench's runs, (curve, log2 points) at window MSMBENCH_WINDOW, whose
 # MSM kernels phase 10 holds against their plain versions on its inputs
@@ -2755,14 +2761,17 @@ def process_mesh_rank(work, device):
 # Phase 10: the port's drivers (blockmaze_tpu_torch/scripts)
 # ---------------------------------------------------------------------------
 
-def driver_runs():
+def driver_runs(work):
     """(label, driver, its arguments, the kernels its path must launch,
     rank devices or None) of each run of phase 10: msmbench's phase split
     at 2^19 G1 and 2^18 G2, warmstart, e2e, batch and prewarm on mint
     (phases 3-4 prove the other circuits; phase 5 runs lifecycle's
-    run_lifecycle), and scaling on a process mesh of 2 ranks (one a card
-    over nccl with two or more cards, else both on cuda:0 over gloo) and,
-    with four cards, of 4."""
+    run_lifecycle), the bench over its four circuits on the seeded keys
+    and over TEXT_KEY_CIRCUITS on phase 9's text keys (bench_key_dir in
+    `work`), and scaling on a process mesh of 2 ranks (one a card over
+    nccl with two or more cards, else both on cuda:0 over gloo) and, with
+    four cards, of 4."""
+    from blockmaze_tpu_torch.scripts import bench
     prove = PROVE_PATH["step"]["launch"]
     runs = [(f"msmbench {curve}", "msmbench",
              ["--phases", "--n", str(log_n), "--curve", curve, "--window",
@@ -2772,8 +2781,29 @@ def driver_runs():
             ("e2e", "e2e", ["mint"], prove, None),
             ("batch", "batch", ["--circuit", "mint", "--batch", "8"], prove,
              None),
-            ("prewarm", "prewarm", ["--circuits", "mint"], prove, None)]
+            ("prewarm", "prewarm", ["--circuits", "mint"], prove, None),
+            ("bench", "bench", [], prove, None),
+            ("bench text keys", "bench",
+             [c for c in bench.CIRCUITS if c in TEXT_KEY_CIRCUITS]
+             + ["--key-dir", bench_key_dir(work)], prove + DECOMPRESS,
+             None)]
     return runs + scaling_runs()
+
+
+def bench_key_dir(work) -> str:
+    """A directory laid out as bench.py's reference_harness/prfKey/: for
+    each of TEXT_KEY_CIRCUITS, <circ>pk.txt linked to phase 9's text key
+    and <circ>vk.txt to the seeded vk; the bench writes the npz of its
+    load beside them."""
+    from blockmaze_tpu_torch.groth16 import generator
+    d = os.path.join(work, "bench_keys")
+    os.makedirs(d)
+    for c in TEXT_KEY_CIRCUITS:
+        os.symlink(os.path.join(KEY_CACHE, "text", f"{c}_s{SEED}.txt"),
+                   os.path.join(d, f"{c}pk.txt"))
+        os.symlink(generator.cache_paths(c, SEED, KEY_CACHE)[1],
+                   os.path.join(d, f"{c}vk.txt"))
+    return d
 
 
 def scaling_runs():
@@ -2852,9 +2882,9 @@ def phase10(mesh_only: bool, dev, report):
     line)."""
     if not mesh_only:
         msmbench_parity(dev, report)
-    runs = scaling_runs() if mesh_only else driver_runs()
     summary, path_counts = {}, []
     with tempfile.TemporaryDirectory(prefix="bm_drivers_") as work:
+        runs = scaling_runs() if mesh_only else driver_runs(work)
         for label, name, args, kernels, devices in runs:
             out, dt = run_driver(label, name, args, devices, work)
             check_launches(f"{label} path", out["launches"], kernels)
@@ -2883,11 +2913,44 @@ def driver_numbers(name, out, devices):
                                     "proofs_per_s", "B_x_single_s")}
     if name == "prewarm":
         return out["circuits"]
+    if name == "bench":
+        return bench_numbers(out)
     backend = "gloo" if len(set(devices)) < len(devices) else "nccl"
     if not out["equal"] or out["backend"] != backend or \
             out["processes"] != len(devices):
         raise AssertionError(f"scaling on {devices}: {out}")
     return {k: out[k] for k in ("backend", "placement", "points", "rows")}
+
+
+def bench_numbers(out):
+    """What the drivers summary keeps of a bench run: each circuit's
+    proofs/s, proof, witness, first-prove, Prover and key seconds and key
+    source; raises unless it benched every circuit it was given (the text
+    keys: TEXT_KEY_CIRCUITS, else all four) from the keys it was
+    given, every proof verified, and each circuit's proofs launched
+    PROVE_PATH's kernels for its domain kind."""
+    from blockmaze_tpu_torch.scripts import bench
+    text = out["key_dir"] is not None
+    circuits = [c for c in bench.CIRCUITS
+                if not text or c in TEXT_KEY_CIRCUITS]
+    source = "key dir" if text else "seeded cache"
+    if out.get("errors") or out["backend"] != "cuda":
+        raise AssertionError(f"bench: {out.get('errors')}, backend "
+                             f"{out['backend']}")
+    res = {k: out[k] for k in ("library", "build_sec", "metric", "value",
+                               "value_e2e", "vs_baseline")}
+    for c in circuits:
+        if not out[f"{c}_verified"] or out[f"{c}_key_source"] != source:
+            raise AssertionError(f"bench {c}: verified "
+                                 f"{out[f'{c}_verified']}, key source "
+                                 f"{out[f'{c}_key_source']}, not {source}")
+        check_prove_counts(out[f"{c}_domain"], out[f"{c}_launches"],
+                           1 + out["reps"])
+        res[c] = {k: out[f"{c}_{k}"] for k in (
+            "proofs_per_sec", "proofs_per_sec_with_witness", "prove_secs",
+            "first_prove_sec", "witness_sec", "warmup_sec", "key_sec",
+            "key_source", "lanes", "window", "vs_baseline")}
+    return res
 
 
 if __name__ == "__main__":

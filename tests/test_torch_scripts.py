@@ -25,8 +25,8 @@ from blockmaze_tpu_torch.groth16.prover import Prover
 from blockmaze_tpu_torch.msm import pippenger as pp
 from blockmaze_tpu_torch.parallel import mesh as pm
 from blockmaze_tpu_torch.r1cs.examples import chain_circuit
-from blockmaze_tpu_torch.scripts import (_common, batch, depth20, e2e,
-                                         lifecycle, msmbench, prewarm,
+from blockmaze_tpu_torch.scripts import (_common, batch, bench, depth20,
+                                         e2e, lifecycle, msmbench, prewarm,
                                          scaling, warmstart)
 from blockmaze_tpu_torch.serialization import libsnark_io as io
 
@@ -39,7 +39,7 @@ WINDOW, LANES = 4, 64      # every plain MSM pays ~254 sequential doublings
 NCONS = 6                  # chain circuit: 7 variables, basic domain m = 8
 DRIVERS = {"msmbench": msmbench, "warmstart": warmstart, "e2e": e2e,
            "batch": batch, "depth20": depth20, "lifecycle": lifecycle,
-           "scaling": scaling, "prewarm": prewarm}
+           "scaling": scaling, "prewarm": prewarm, "bench": bench}
 
 
 @pytest.mark.parametrize("curve", ["g1", "g2"])
