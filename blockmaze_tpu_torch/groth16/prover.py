@@ -35,10 +35,10 @@ the same proof. A proof equals the single-card proof at the same (r, s).
 
 from __future__ import annotations
 
+import contextlib
 import multiprocessing
 import os
 import secrets
-import time
 from concurrent.futures import ProcessPoolExecutor
 from typing import List, Optional
 
@@ -54,6 +54,7 @@ from ..ntt import pntt, tntt
 from ..parallel import mesh as pm
 from ..parallel import sntt, sqap
 from ..serialization.libsnark_io import Proof
+from ..utils import spans
 from . import keys as K
 from . import qap
 
@@ -91,7 +92,16 @@ class Prover:
     their plain versions. lanes is the most MSM accumulation lanes
     (pippenger.lane_cut cuts fewer for a sparse stream), window the
     Pippenger window c. mesh (parallel.mesh.Mesh or ProcessMesh) shards
-    the proof over its devices, its lead device in place of device."""
+    the proof over its devices, its lead device in place of device.
+
+    timings holds the seconds of the last call's laps, each the span
+    prover.<lap> of utils/spans.py, timed whether or not the span recorder
+    is on and ended by a synchronise of the device: after prove, wires
+    (the draws, prover.limbs: the witness to limbs; prover.upload: the
+    upload and its Montgomery form; prover.blinds: two make_blind on the
+    host), qap, msm (the MSMs, each waiting for its live count) and
+    combine (prover.fetch: the MSMs' results to the host; prover.unblind;
+    prover.group: A, B and C); after prove_batch, see there."""
 
     def __init__(self, dpk, device="cuda", lanes: Optional[int] = None,
                  window: Optional[int] = None, mesh=None):
@@ -152,15 +162,18 @@ class Prover:
     def _sync(self):
         devs = (self.mesh.local_devices if self.mesh is not None
                 else (self.device,))
-        for d in dict.fromkeys(devs):
-            if d.type == "cuda":
-                torch.cuda.synchronize(d)
+        with spans.span("device.wait"):
+            for d in dict.fromkeys(devs):
+                if d.type == "cuda":
+                    torch.cuda.synchronize(d)
 
-    def _lap(self, label, t0):
-        self._sync()
-        t = time.perf_counter()
-        self.timings[label] = t - t0
-        return t
+    @contextlib.contextmanager
+    def _lap(self, label):
+        """The lap prover.<label>, the device synchronised at its end, its
+        seconds into timings[label]."""
+        with spans.Timed("prover." + label, sync=self._sync) as lap:
+            yield
+        self.timings[label] = lap.seconds
 
     def _msm(self, name, curve, pts, scalars, n, blind):
         """One MSM of the proof; its points and padded scalars stay in
@@ -215,33 +228,41 @@ class Prover:
         return (pp.make_blind("g1", self.device, k1),
                 pp.make_blind("g2", self.device, k2))
 
+    @spans.traced("prover.prove")
     def prove(self, primary: List[int], aux: List[int],
               r: Optional[int] = None, s: Optional[int] = None) -> Proof:
         self._check_sizes(primary, aux)
         self.timings = {}
         self.msm_inputs = {}
-        t0 = time.perf_counter()
-        r, s, k1, k2 = self._shared((
-            secrets.randbelow(R_MOD) if r is None else r,
-            secrets.randbelow(R_MOD) if s is None else s,
-            pp.blind_scalar(), pp.blind_scalar()))
+        with self._lap("wires"):
+            r, s, k1, k2 = self._shared((
+                secrets.randbelow(R_MOD) if r is None else r,
+                secrets.randbelow(R_MOD) if s is None else s,
+                pp.blind_scalar(), pp.blind_scalar()))
+            with spans.span("prover.limbs"):
+                limbs = _wire_limbs(primary, aux)
+            wires_std, wires_mont = self._upload(limbs)
+            with spans.span("prover.blinds"):
+                (R1, b1), (R2, b2) = self._blinds(k1, k2)
 
-        wires_std = tf.to_tensor(_wire_limbs(primary, aux), self.device)
-        wires_mont = pntt.mul_elementwise(wires_std, self._r2)
-        (R1, b1), (R2, b2) = self._blinds(k1, k2)
-        t0 = self._lap("wires", t0)
+        with self._lap("qap"):
+            H_std = self._qap(wires_mont)
 
-        H_std = self._qap(wires_mont)
-        t0 = self._lap("qap", t0)
+        with self._lap("msm"):
+            msms = self._msms(wires_std, H_std, b1, b2)
 
-        msms = self._msms(wires_std, H_std, b1, b2)
-        t0 = self._lap("msm", t0)
-
-        proof = _combine(self._consts, self.window, _to_numpy(msms), R1, R2,
-                         r, s)
-        self._lap("combine", t0)
+        with self._lap("combine"):
+            proof = _combine(self._consts, self.window, _to_numpy(msms), R1,
+                             R2, r, s)
         return proof
 
+    def _upload(self, limbs):
+        """The wires on the device, in standard and in Montgomery form."""
+        with spans.span("prover.upload"):
+            wires_std = tf.to_tensor(limbs, self.device)
+            return wires_std, pntt.mul_elementwise(wires_std, self._r2)
+
+    @spans.traced("prover.prove_batch")
     def prove_batch(self, instances, rs: Optional[List[int]] = None,
                     ss: Optional[List[int]] = None) -> List[Proof]:
         """Proofs of B (primary, aux) witnesses of this circuit, proofs[i]
@@ -256,8 +277,16 @@ class Prover:
         no sync between phases; the host combine of each proof (Python
         integer group arithmetic, most of a proof's host time) runs in
         worker processes meanwhile, outside this interpreter's lock.
-        timings holds the batch's phases: blinds, limbs (summed), dispatch
-        (this thread's loop) and drain (the combines left after it)."""
+
+        timings holds the batch's laps, each the span prover.<lap>
+        (utils/spans.py), timed whether or not the recorder is on and ended
+        by a synchronise of the device: blinds (the draws and the batch's
+        blind pair), dispatch (this thread's loop: per witness
+        prover.limbs, prover.upload, the QAP and MSMs, prover.fetch and
+        prover.submit to a worker) and drain (the combines left after it);
+        and limbs, the prover.limbs spans' seconds summed. The combines'
+        own spans (prover.unblind, prover.group) are not recorded: spans
+        are per process, and the workers' time shows as drain."""
         for primary, aux in instances:
             self._check_sizes(primary, aux)
         B = len(instances)
@@ -271,26 +300,26 @@ class Prover:
             return []
         self.timings = {"limbs": 0.0}
         self.msm_inputs = {}
-        t0 = time.perf_counter()
-        rs, ss, k1, k2 = self._shared((rs, ss, pp.blind_scalar(),
-                                       pp.blind_scalar()))
-        (R1, b1), (R2, b2) = self._blinds(k1, k2)
-        t0 = self._lap("blinds", t0)
-        pool = self._host_pool()
-        proofs = []
-        for (primary, aux), r, s in zip(instances, rs, ss):
-            t = time.perf_counter()
-            limbs = _wire_limbs(primary, aux)
-            self.timings["limbs"] += time.perf_counter() - t
-            wires_std = tf.to_tensor(limbs, self.device)
-            wires_mont = pntt.mul_elementwise(wires_std, self._r2)
-            H_std = self._qap(wires_mont)
-            msms = _to_numpy(self._msms(wires_std, H_std, b1, b2))
-            proofs.append(pool.submit(_combine, self._consts, self.window,
-                                      msms, R1, R2, r, s))
-        t0 = self._lap("dispatch", t0)
-        proofs = [p.result() for p in proofs]
-        self._lap("drain", t0)
+        with self._lap("blinds"):
+            rs, ss, k1, k2 = self._shared((rs, ss, pp.blind_scalar(),
+                                           pp.blind_scalar()))
+            (R1, b1), (R2, b2) = self._blinds(k1, k2)
+        with self._lap("dispatch"):
+            pool = self._host_pool()
+            proofs = []
+            for (primary, aux), r, s in zip(instances, rs, ss):
+                with spans.Timed("prover.limbs") as lap:
+                    limbs = _wire_limbs(primary, aux)
+                self.timings["limbs"] += lap.seconds
+                wires_std, wires_mont = self._upload(limbs)
+                H_std = self._qap(wires_mont)
+                msms = _to_numpy(self._msms(wires_std, H_std, b1, b2))
+                with spans.span("prover.submit"):
+                    proofs.append(pool.submit(_combine, self._consts,
+                                              self.window, msms, R1, R2, r,
+                                              s))
+        with self._lap("drain"):
+            proofs = [p.result() for p in proofs]
         return proofs
 
     def _host_pool(self) -> ProcessPoolExecutor:
@@ -320,17 +349,20 @@ def _wire_limbs(primary, aux) -> np.ndarray:
 
 
 def _to_numpy(msms):
-    """The MSM results as host numpy arrays (waits for the device)."""
-    return tuple(tuple(t.cpu().numpy() for t in res) for res in msms)
+    """The MSM results as host numpy arrays (waits for the device): the
+    span prover.fetch."""
+    with spans.span("prover.fetch"):
+        return tuple(tuple(t.cpu().numpy() for t in res) for res in msms)
 
 
 def _combine(consts, c: int, msms, R1, R2, r: int, s: int) -> Proof:
     """The host half of a proof: each MSM (X, Y, Z, blind window counts as
     numpy arrays, in _msms' order) to affine, less its blind's surplus
-    against R1 or R2, then A, B and C with r and s. consts: the key's
-    (alpha_g1, beta_g1, beta_g2, delta_g1, delta_g2). A module-level
-    function of picklable arguments, so prove_batch's worker processes run
-    it."""
+    against R1 or R2 (the span prover.unblind), then A, B and C with r and
+    s (prover.group). consts: the key's (alpha_g1, beta_g1, beta_g2,
+    delta_g1, delta_g2). A module-level function of picklable arguments,
+    so prove_batch's worker processes run it; there its spans are not
+    recorded (the recorder is per process)."""
     alpha_g1, beta_g1, beta_g2, delta_g1, delta_g2 = consts
     At, Bt2, Bt1, Ht, Lt = msms
 
@@ -338,16 +370,18 @@ def _combine(consts, c: int, msms, R1, R2, r: int, s: int) -> Proof:
         pt = tc.g1_jacobian_to_host(tuple(v[None] for v in res[:3]))[0]
         return pp.unblind_msm("g1", pt, res[3], R1, c)
 
-    At_h, Bt1_h, Ht_h, Lt_h = g1(At), g1(Bt1), g1(Ht), g1(Lt)
-    Bt2_h = pp.unblind_msm(
-        "g2", tc.g2_jacobian_to_host(tuple(v[None] for v in Bt2[:3]))[0],
-        Bt2[3], R2, c)
+    with spans.span("prover.unblind"):
+        At_h, Bt1_h, Ht_h, Lt_h = g1(At), g1(Bt1), g1(Ht), g1(Lt)
+        Bt2_h = pp.unblind_msm(
+            "g2", tc.g2_jacobian_to_host(tuple(v[None] for v in Bt2[:3]))[0],
+            Bt2[3], R2, c)
 
-    g1_A = HC.g1_add(HC.g1_add(alpha_g1, At_h), HC.g1_mul(delta_g1, r))
-    g1_B = HC.g1_add(HC.g1_add(beta_g1, Bt1_h), HC.g1_mul(delta_g1, s))
-    g2_B = HC.g2_add(HC.g2_add(beta_g2, Bt2_h), HC.g2_mul(delta_g2, s))
-    g1_C = HC.g1_add(
-        HC.g1_add(HC.g1_add(Ht_h, Lt_h), HC.g1_mul(g1_A, s)),
-        HC.g1_add(HC.g1_mul(g1_B, r),
-                  HC.g1_neg(HC.g1_mul(delta_g1, r * s % R_MOD))))
+    with spans.span("prover.group"):
+        g1_A = HC.g1_add(HC.g1_add(alpha_g1, At_h), HC.g1_mul(delta_g1, r))
+        g1_B = HC.g1_add(HC.g1_add(beta_g1, Bt1_h), HC.g1_mul(delta_g1, s))
+        g2_B = HC.g2_add(HC.g2_add(beta_g2, Bt2_h), HC.g2_mul(delta_g2, s))
+        g1_C = HC.g1_add(
+            HC.g1_add(HC.g1_add(Ht_h, Lt_h), HC.g1_mul(g1_A, s)),
+            HC.g1_add(HC.g1_mul(g1_B, r),
+                      HC.g1_neg(HC.g1_mul(delta_g1, r * s % R_MOD))))
     return Proof(a=g1_A, b=g2_B, c=g1_C)

@@ -44,6 +44,7 @@ from ..curves import tcurve as tc
 from ..fields import tfield as tf
 from ..fields.constants import R_MOD
 from ..utils import kernels as kn
+from ..utils import spans
 
 SCALAR_BITS = 254
 
@@ -94,12 +95,14 @@ def sort_live(keys, live, count=None):
     """The live items as (keys int32, point ids int32) in (window, digit,
     point) order: a stable partition, then a stable sort of the live keys
     alone. The partition is torch.nonzero, which reads the live count to
-    the host; given that count (an int), it is a scatter of each live
-    item to its rank instead, which does not wait for the device."""
+    the host (the span device.wait); given that count (an int), it is a
+    scatter of each live item to its rank instead, which does not wait for
+    the device."""
     n = keys.shape[1]
     flat = live.reshape(-1)
     if count is None:
-        idx = torch.nonzero(flat).squeeze(1)
+        with spans.span("device.wait"):
+            idx = torch.nonzero(flat).squeeze(1)
     else:
         # dead items all go to the spare slot `count`, which is cut off
         rank = torch.where(flat, torch.cumsum(flat, 0) - 1, count)

@@ -32,6 +32,7 @@ from ..merkle import incremental as MK
 from ..r1cs.protoboard import Protoboard
 from ..serialization import libsnark_io as io
 from ..utils import kernels as kn
+from ..utils import spans
 
 
 # ---------------------------------------------------------------------------
@@ -103,7 +104,13 @@ class ZkTx:
     `merkle_depth` selects the in-circuit tree depth for deposit (8 is the
     reference default, 20 the production setting — config.Config.merkle_depth);
     the key files in `key_dir` must have been generated for the same depth.
-    Every prover runs on `device`."""
+    Every prover runs on `device`.
+
+    Each Gen*Proof call is the span zktx.prove (utils/spans.py), and inside
+    it zktx.notes (the PRFs, notes, commitments and, for deposit, the
+    Merkle path), zktx.witness (the protoboard, the gadget's witness and
+    its primary and auxiliary inputs), the prover's prover.prove and
+    zktx.encode (the proof's hex); each Verify*Proof call is zktx.verify."""
 
     def __init__(self, key_dir: Optional[str] = None,
                  merkle_depth: Optional[int] = None, device="cuda"):
@@ -126,24 +133,33 @@ class ZkTx:
         if torch.device(self.device).type == "cuda":
             kn.LIB.get()
 
+    def _prove(self, name: str, primary, aux) -> tuple:
+        """The circuit's proof of the synthesised witness: (proof hex, the
+        public input)."""
+        proof = self.circuits[name].prover.prove(primary, aux)
+        with spans.span("zktx.encode"):
+            return io.proof_to_hex(proof), primary
+
     # --- mint -----------------------------------------------------------
+    @spans.traced("zktx.prove")
     def gen_mint_proof(self, value_old: int, value: int, value_s: int,
                        sk: bytes, r_old: bytes, r: bytes,
                        sn_old: Optional[bytes] = None) -> tuple:
         # the reference ABI passes sn_old explicitly (zktx.go GenMintProof):
         # genesis notes carry InitializeSN's sn, not PRF(this sk, r_old)
-        if sn_old is None:
-            sn_old = compute_prf(sk, r_old)
-        note_old = NT.Note(value_old, sn_old, r_old)
-        sn = compute_prf(sk, r)
-        note = NT.Note(value, sn, r)
-        pb = Protoboard()
-        g = MintGadget(pb)
-        g.generate_witness(note_old, note, note_old.cm(), note.cm(),
-                           value_s, sk)
-        proof = self.circuits["mint"].prover.prove(
-            pb.primary_input(), pb.auxiliary_input())
-        return io.proof_to_hex(proof), pb.primary_input()
+        with spans.span("zktx.notes"):
+            if sn_old is None:
+                sn_old = compute_prf(sk, r_old)
+            note_old = NT.Note(value_old, sn_old, r_old)
+            sn = compute_prf(sk, r)
+            note = NT.Note(value, sn, r)
+            cm_old, cm = note_old.cm(), note.cm()
+        with spans.span("zktx.witness"):
+            pb = Protoboard()
+            g = MintGadget(pb)
+            g.generate_witness(note_old, note, cm_old, cm, value_s, sk)
+            primary, aux = pb.primary_input(), pb.auxiliary_input()
+        return self._prove("mint", primary, aux)
 
     @staticmethod
     def _decode(proof) -> io.Proof:
@@ -151,6 +167,7 @@ class ZkTx:
         or an already-decoded Proof."""
         return io.proof_from_hex(proof) if isinstance(proof, str) else proof
 
+    @spans.traced("zktx.verify")
     def verify_mint_proof(self, proof, cmtA_old: bytes,
                           sn_old: bytes, cmtA: bytes, value_s: int) -> bool:
         proof = self._decode(proof)
@@ -158,24 +175,27 @@ class ZkTx:
         return gver.verify(self.circuits["mint"].vk, primary, proof)
 
     # --- send -----------------------------------------------------------
+    @spans.traced("zktx.prove")
     def gen_send_proof(self, value_old: int, value: int, value_s: int,
                        sk: bytes, r_old: bytes, r: bytes,
                        pk_sender: bytes, pk_recv: bytes,
                        sn_old: Optional[bytes] = None) -> tuple:
-        if sn_old is None:
-            sn_old = compute_prf(sk, r_old)
-        note_old = NT.Note(value_old, sn_old, r_old)
-        note = NT.Note(value, compute_prf(sk, r), r)
-        r_s = compute_crh(pk_sender, r)
-        note_s = NT.NoteS(value_s, pk_recv, r_s, sn_old)
-        pb = Protoboard()
-        g = SendGadget(pb)
-        g.generate_witness(note_old, note_s, note, note_old.cm(),
-                           note_s.cm(), note.cm(), sk, pk_sender)
-        proof = self.circuits["send"].prover.prove(
-            pb.primary_input(), pb.auxiliary_input())
-        return io.proof_to_hex(proof), pb.primary_input()
+        with spans.span("zktx.notes"):
+            if sn_old is None:
+                sn_old = compute_prf(sk, r_old)
+            note_old = NT.Note(value_old, sn_old, r_old)
+            note = NT.Note(value, compute_prf(sk, r), r)
+            r_s = compute_crh(pk_sender, r)
+            note_s = NT.NoteS(value_s, pk_recv, r_s, sn_old)
+            cms = note_old.cm(), note_s.cm(), note.cm()
+        with spans.span("zktx.witness"):
+            pb = Protoboard()
+            g = SendGadget(pb)
+            g.generate_witness(note_old, note_s, note, *cms, sk, pk_sender)
+            primary, aux = pb.primary_input(), pb.auxiliary_input()
+        return self._prove("send", primary, aux)
 
+    @spans.traced("zktx.verify")
     def verify_send_proof(self, proof, cmtA_old: bytes,
                           sn_old: bytes, cmtS: bytes, cmtA: bytes) -> bool:
         proof = self._decode(proof)
@@ -183,21 +203,24 @@ class ZkTx:
         return gver.verify(self.circuits["send"].vk, primary, proof)
 
     # --- redeem ---------------------------------------------------------
+    @spans.traced("zktx.prove")
     def gen_redeem_proof(self, value_old: int, value: int, value_s: int,
                          sk: bytes, r_old: bytes, r: bytes,
                          sn_old: Optional[bytes] = None) -> tuple:
-        if sn_old is None:
-            sn_old = compute_prf(sk, r_old)
-        note_old = NT.Note(value_old, sn_old, r_old)
-        note = NT.Note(value, compute_prf(sk, r), r)
-        pb = Protoboard()
-        g = RedeemGadget(pb)
-        g.generate_witness(note_old, note, note_old.cm(), note.cm(),
-                           value_s, sk)
-        proof = self.circuits["redeem"].prover.prove(
-            pb.primary_input(), pb.auxiliary_input())
-        return io.proof_to_hex(proof), pb.primary_input()
+        with spans.span("zktx.notes"):
+            if sn_old is None:
+                sn_old = compute_prf(sk, r_old)
+            note_old = NT.Note(value_old, sn_old, r_old)
+            note = NT.Note(value, compute_prf(sk, r), r)
+            cm_old, cm = note_old.cm(), note.cm()
+        with spans.span("zktx.witness"):
+            pb = Protoboard()
+            g = RedeemGadget(pb)
+            g.generate_witness(note_old, note, cm_old, cm, value_s, sk)
+            primary, aux = pb.primary_input(), pb.auxiliary_input()
+        return self._prove("redeem", primary, aux)
 
+    @spans.traced("zktx.verify")
     def verify_redeem_proof(self, proof, cmtA_old: bytes,
                             sn_old: bytes, cmtA: bytes, value_s: int) -> bool:
         proof = self._decode(proof)
@@ -205,6 +228,7 @@ class ZkTx:
         return gver.verify(self.circuits["redeem"].vk, primary, proof)
 
     # --- deposit --------------------------------------------------------
+    @spans.traced("zktx.prove")
     def gen_deposit_proof(self, value_old: int, value: int, value_s: int,
                           sk: bytes, r_old: bytes, r: bytes, r_s: bytes,
                           sn_A_old: bytes, pk_recv: bytes,
@@ -212,36 +236,39 @@ class ZkTx:
                           sn_old: Optional[bytes] = None) -> tuple:
         """Rebuilds the tree from the cmt list (genDepositproof semantics:
         depositcgo.cpp builds the tree, takes witness(cmtS).path())."""
-        if sn_old is None:
-            sn_old = compute_prf(sk, r_old)
-        note_old = NT.Note(value_old, sn_old, r_old)
-        note = NT.Note(value, compute_prf(sk, r), r)
-        note_s = NT.NoteS(value_s, pk_recv, r_s, sn_A_old)
-        sn_s = compute_prf(sk, r_s)
-        cmtS = note_s.cm()
+        with spans.span("zktx.notes"):
+            if sn_old is None:
+                sn_old = compute_prf(sk, r_old)
+            note_old = NT.Note(value_old, sn_old, r_old)
+            note = NT.Note(value, compute_prf(sk, r), r)
+            note_s = NT.NoteS(value_s, pk_recv, r_s, sn_A_old)
+            sn_s = compute_prf(sk, r_s)
+            cmtS = note_s.cm()
+            cm_old, cm = note_old.cm(), note.cm()
 
-        tree = MK.IncrementalMerkleTree(self.merkle_depth)
-        wit = None
-        for cmt in cmts_for_merkle:
-            if wit is not None:
-                wit.append(cmt)
-            else:
-                tree.append(cmt)
-            if cmt == cmtS and wit is None:
-                wit = tree.witness()
-        if wit is None:
-            raise ValueError("cmtS not found in merkle commitment list")
-        rt = wit.root()
-        path = wit.path()
+            tree = MK.IncrementalMerkleTree(self.merkle_depth)
+            wit = None
+            for cmt in cmts_for_merkle:
+                if wit is not None:
+                    wit.append(cmt)
+                else:
+                    tree.append(cmt)
+                if cmt == cmtS and wit is None:
+                    wit = tree.witness()
+            if wit is None:
+                raise ValueError("cmtS not found in merkle commitment list")
+            rt = wit.root()
+            path = wit.path()
 
-        pb = Protoboard()
-        g = DepositGadget(pb, depth=self.merkle_depth)
-        g.generate_witness(note_s, note_old, note, cmtS, note_old.cm(),
-                           note.cm(), rt, path, sn_s, sk)
-        proof = self.circuits["deposit"].prover.prove(
-            pb.primary_input(), pb.auxiliary_input())
-        return io.proof_to_hex(proof), pb.primary_input()
+        with spans.span("zktx.witness"):
+            pb = Protoboard()
+            g = DepositGadget(pb, depth=self.merkle_depth)
+            g.generate_witness(note_s, note_old, note, cmtS, cm_old, cm, rt,
+                               path, sn_s, sk)
+            primary, aux = pb.primary_input(), pb.auxiliary_input()
+        return self._prove("deposit", primary, aux)
 
+    @spans.traced("zktx.verify")
     def verify_deposit_proof(self, proof, rt: bytes,
                              pk_recv: bytes, cmtB_old: bytes, sn_old: bytes,
                              cmtB: bytes, sn_s: bytes) -> bool:
