@@ -36,6 +36,8 @@ the same proof. A proof equals the single-card proof at the same (r, s).
 from __future__ import annotations
 
 import contextlib
+import ctypes
+import functools
 import multiprocessing
 import os
 import secrets
@@ -54,6 +56,7 @@ from ..ntt import pntt, tntt
 from ..parallel import mesh as pm
 from ..parallel import sntt, sqap
 from ..serialization.libsnark_io import Proof
+from ..utils import kernels as kn
 from ..utils import spans
 from . import keys as K
 from . import qap
@@ -97,11 +100,12 @@ class Prover:
     timings holds the seconds of the last call's laps, each the span
     prover.<lap> of utils/spans.py, timed whether or not the span recorder
     is on and ended by a synchronise of the device: after prove, wires
-    (the draws, prover.limbs: the witness to limbs; prover.upload: the
-    upload and its Montgomery form; prover.blinds: two make_blind on the
-    host), qap, msm (the MSMs, each waiting for its live count) and
-    combine (prover.fetch: the MSMs' results to the host; prover.unblind;
-    prover.group: A, B and C); after prove_batch, see there."""
+    (the draws, prover.limbs: the witness to limbs, _wire_limbs' native
+    pass; prover.upload: the upload and its Montgomery form;
+    prover.blinds: two make_blind on the host), qap, msm (the MSMs, each
+    waiting for its live count) and combine (prover.fetch: the MSMs'
+    results to the host; prover.unblind; prover.group: A, B and C); after
+    prove_batch, see there."""
 
     def __init__(self, dpk, device="cuda", lanes: Optional[int] = None,
                  window: Optional[int] = None, mesh=None):
@@ -151,6 +155,12 @@ class Prover:
         self._r2 = tf.to_tensor(FR.r2_limbs[None], self.device)
         self._consts = (dpk.alpha_g1, dpk.beta_g1, dpk.beta_g2, dpk.delta_g1,
                         dpk.delta_g2)
+        # the witness's limbs, rewritten by every proof (_limbs): the
+        # upload copies them out before it returns (a pageable, blocking
+        # copy to the card; a clone on the CPU), so no proof reads another's.
+        # A non-blocking upload would make this reuse unsafe.
+        self._limb_buf = np.empty((dpk.num_variables + 1, tf.N), np.uint32)
+        _wire_lib()     # built now, not inside the first proof
         self._pool = None
         self.timings = {}
         self.msm_inputs = {}
@@ -239,8 +249,7 @@ class Prover:
                 secrets.randbelow(R_MOD) if r is None else r,
                 secrets.randbelow(R_MOD) if s is None else s,
                 pp.blind_scalar(), pp.blind_scalar()))
-            with spans.span("prover.limbs"):
-                limbs = _wire_limbs(primary, aux)
+            limbs, _ = self._limbs(primary, aux)
             wires_std, wires_mont = self._upload(limbs)
             with spans.span("prover.blinds"):
                 (R1, b1), (R2, b2) = self._blinds(k1, k2)
@@ -256,10 +265,23 @@ class Prover:
                              R2, r, s)
         return proof
 
+    def _limbs(self, primary, aux):
+        """The wires (1, primary, aux) as standard-form limbs in the reused
+        buffer, and the seconds of the span prover.limbs that makes them
+        (its info: {"wires": rows, "wide": rows that took Python's
+        branch})."""
+        with spans.Timed("prover.limbs") as lap:
+            limbs, wide = _wire_limbs(primary, aux, self._limb_buf)
+            lap.info = {"wires": len(limbs), "wide": wide}
+        return limbs, lap.seconds
+
     def _upload(self, limbs):
-        """The wires on the device, in standard and in Montgomery form."""
+        """The wires on the device, in standard and in Montgomery form; no
+        tensor shares memory with limbs."""
         with spans.span("prover.upload"):
             wires_std = tf.to_tensor(limbs, self.device)
+            if wires_std.device.type == "cpu":
+                wires_std = wires_std.clone()   # from_numpy shares limbs
             return wires_std, pntt.mul_elementwise(wires_std, self._r2)
 
     @spans.traced("prover.prove_batch")
@@ -308,9 +330,8 @@ class Prover:
             pool = self._host_pool()
             proofs = []
             for (primary, aux), r, s in zip(instances, rs, ss):
-                with spans.Timed("prover.limbs") as lap:
-                    limbs = _wire_limbs(primary, aux)
-                self.timings["limbs"] += lap.seconds
+                limbs, seconds = self._limbs(primary, aux)
+                self.timings["limbs"] += seconds
                 wires_std, wires_mont = self._upload(limbs)
                 H_std = self._qap(wires_mont)
                 msms = _to_numpy(self._msms(wires_std, H_std, b1, b2))
@@ -343,9 +364,41 @@ class Prover:
 HOST_WORKERS = max(1, min(4, (os.cpu_count() or 1) - 1))
 
 
-def _wire_limbs(primary, aux) -> np.ndarray:
-    """The wires (1, primary, aux) as (n, 16) uint32 standard-form limbs."""
-    return tf.ints_to_limbs([1] + list(primary) + list(aux))
+@functools.cache
+def _wire_lib():
+    """csrc/wirelimbs.cpp's bm_wire_limbs, built at first use (g++, with
+    the interpreter's headers) and loaded with the interpreter lock held
+    through each call (ctypes.PyDLL)."""
+    fn = ctypes.PyDLL(kn.host_library("wirelimbs.cpp",
+                                      kn.PY_HOST_FLAGS)).bm_wire_limbs
+    fn.argtypes = [ctypes.py_object, ctypes.py_object, ctypes.c_void_p,
+                   ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_longlong
+    return fn
+
+
+def _wire_limbs(primary, aux, out: np.ndarray):
+    """The wires (1, primary, aux) as (n, 16) uint32 standard-form limbs,
+    equal to tf.ints_to_limbs([1] + list(primary) + list(aux)) with its
+    errors, written into out (returned), and how many wires took the wide
+    branch. One native pass (csrc/wirelimbs.cpp) writes every int
+    below 2^64; each other wire (2^64 and above, negative, not an int)
+    goes through int(x).to_bytes(32, "little") here, which raises what
+    ints_to_limbs raises."""
+    primary = primary if type(primary) is list else list(primary)
+    aux = aux if type(aux) is list else list(aux)
+    n = 1 + len(primary) + len(aux)
+    if out.shape != (n, tf.N) or out.dtype != np.uint32 or \
+            not out.flags.c_contiguous:
+        raise ValueError(f"limbs of {n} wires need a C-contiguous ({n}, "
+                         f"{tf.N}) uint32 array, got {out.shape} {out.dtype}")
+    rows = np.empty(n, np.int64)
+    k = _wire_lib()(primary, aux, out.ctypes.data, n, rows.ctypes.data)
+    for row in rows[:k].tolist():
+        x = primary[row - 1] if row <= len(primary) else \
+            aux[row - 1 - len(primary)]
+        out[row] = np.frombuffer(int(x).to_bytes(32, "little"), "<u2")
+    return out, k
 
 
 def _to_numpy(msms):

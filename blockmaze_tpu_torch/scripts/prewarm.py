@@ -1,10 +1,11 @@
 """Pre-warm what a fresh process would otherwise pay inside its first
 proof. The port has no compile cache: warming is building the kernel
-library (nvcc, into blockmaze_tpu_torch/_build/) and the host tokenizer
-(g++), resolving every named circuit's key, so that a fresh tree runs
-keygen here once (the seeded keys of blockmaze_tpu_torch/_keys/; or
---key-dir D's text keys, whose npz cache is written beside them), and
-one proof a circuit at (r, s) = (1, 2), verified.
+library (nvcc, into blockmaze_tpu_torch/_build/), the host tokenizer and
+the prover's witness limbs (g++), resolving every named circuit's key, so
+that a fresh tree runs keygen here once (the seeded keys of
+blockmaze_tpu_torch/_keys/; or --key-dir D's text keys, whose npz cache
+is written beside them), and one proof a circuit at (r, s) = (1, 2),
+verified.
 
     python -m blockmaze_tpu_torch.scripts.prewarm
         [--circuits mint,send,redeem,deposit[,deposit20]] [--key-dir D]
@@ -41,8 +42,10 @@ def main(argv=None):
         library = kn.build()
         kn.LIB.get()
     tokenizer = kn.host_library("keyparse.cpp")
+    limbs = kn.host_library("wirelimbs.cpp", kn.PY_HOST_FLAGS)
     t_build = time.perf_counter() - t0
-    cm.say(f"kernels {library}, tokenizer {tokenizer}: {t_build:.1f}s")
+    cm.say(f"kernels {library}, tokenizer {tokenizer}, witness limbs "
+           f"{limbs}: {t_build:.1f}s")
     summary = {"metric": "prewarm", "device": str(dev),
                "build_s": t_build, "circuits": []}
     kn.reset_counts()

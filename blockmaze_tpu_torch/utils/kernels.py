@@ -17,10 +17,11 @@ Each kernel has a `Kernel` object whose `launches` count goes up by one
 each time its wrapper launches it, so a run can show which kernels it went
 through.
 
-Host code in csrc/*.cpp (the key-text tokenizer, keyparse.cpp) builds
-the same way at first use, with g++, the host compiler nvcc itself
-calls, into its own library in _build/ (host_library); the CPU tests
-build and run the very same file.
+Host code in csrc/*.cpp (the key-text tokenizer, keyparse.cpp; the
+prover's witness limbs, wirelimbs.cpp, which also takes the
+interpreter's include directory) builds the same way at first use, with
+g++, the host compiler nvcc itself calls, into its own library in
+_build/ (host_library); the CPU tests build and run the very same files.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sysconfig
 import tempfile
 import time
 
@@ -42,6 +44,9 @@ BUILD = os.path.join(PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 HOST_FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC"]
+# host files that read Python objects (wirelimbs.cpp) add the interpreter's
+# headers
+PY_HOST_FLAGS = ["-I" + sysconfig.get_paths()["include"]]
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
@@ -118,22 +123,24 @@ def _locked_build(lib: str, make):
     return lib
 
 
-def host_library(source: str) -> str:
-    """Compile the host C++ file csrc/<source> with g++ (HOST_FLAGS) into
-    _build/ if that exact source has not been built yet; return the
-    library path. A failed build raises BuildError."""
+def host_library(source: str, flags=()) -> str:
+    """Compile the host C++ file csrc/<source> with g++ (HOST_FLAGS, then
+    flags) into _build/ if that exact source has not been built with those
+    flags yet; return the library path. A failed build raises
+    BuildError."""
     src = os.path.join(CSRC, source)
     stem = os.path.splitext(source)[0]
-    lib = _hashed_path(f"libbm{stem}", [src], HOST_FLAGS)
+    flags = [*HOST_FLAGS, *flags]
+    lib = _hashed_path(f"libbm{stem}", [src], flags)
 
     def make():
         cxx = shutil.which("g++")
         if cxx is None:
-            raise BuildError("g++ not found: the host tokenizer needs the "
-                             "C++ compiler nvcc uses")
+            raise BuildError(f"g++ not found: {source} needs the C++ "
+                             "compiler nvcc uses")
         with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
             out = os.path.join(tmp, "lib.so")
-            res = subprocess.run([cxx, *HOST_FLAGS, "-o", out, src],
+            res = subprocess.run([cxx, *flags, "-o", out, src],
                                  capture_output=True, text=True)
             if res.returncode != 0:
                 raise BuildError(f"g++ failed on {source}:\n{res.stderr}")

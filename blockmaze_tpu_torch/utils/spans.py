@@ -26,16 +26,19 @@ Timed(name) is a span that is timed whether or not the recorder is on:
 its `seconds` after the block (the Prover's laps, which fill
 Prover.timings, and prove_batch's limbs), the same start and end as the
 span it records when the recorder is on. With sync=, that callable runs
-at the block's end, inside the span, unless the block raised.
+at the block's end, inside the span, unless the block raised. A dict the
+block puts in its `info` is the recorded span's info.
 
 The spans the port opens, by layer (`layer.stage`):
 
 - prover: prover.prove and prover.prove_batch (request roots unless a
   service call is open); the laps prover.wires, prover.qap, prover.msm,
   prover.combine (prove) and prover.blinds, prover.dispatch,
-  prover.drain (prove_batch); inside them prover.limbs, prover.upload,
-  prover.blinds (prove's two make_blind), prover.fetch, prover.unblind,
-  prover.group and prover.submit (groth16/prover.py);
+  prover.drain (prove_batch); inside them prover.limbs (its info
+  {"wires": n, "wide": k}: the witness's n rows and the k of them that
+  left the native pass for Python's), prover.upload, prover.blinds
+  (prove's two make_blind), prover.fetch, prover.unblind, prover.group
+  and prover.submit (groth16/prover.py);
 - device.wait: every blocking read of the card on the proof path: the
   Prover's synchronise at the end of each lap and the live count of each
   MSM's stream (msm/pippenger.py sort_live);
@@ -103,22 +106,24 @@ def _open() -> tuple:
     return ids
 
 
-def _close(name: str, start: int, end: int, ids: tuple):
+def _close(name: str, start: int, end: int, ids: tuple, info=None):
     stack = _stack()
     if stack and stack[-1] == ids[0]:
         stack.pop()
-    _records.append(Span(name, start, end, *ids))
+    _records.append(Span(name, start, end, *ids, info))
 
 
 class Timed:
     """A block timed whether or not the recorder is on (module docstring);
-    recorded as the span `name` when the recorder is on at its start."""
-    __slots__ = ("name", "sync", "seconds", "_start", "_ids")
+    recorded as the span `name` when the recorder is on at its start,
+    with the `info` the block sets (None unless it sets one)."""
+    __slots__ = ("name", "sync", "seconds", "info", "_start", "_ids")
 
     def __init__(self, name: str, sync=None):
         self.name = name
         self.sync = sync
         self.seconds = 0.0
+        self.info = None
 
     def __enter__(self):
         self._ids = _open() if _on else None
@@ -131,7 +136,7 @@ class Timed:
         end = time.perf_counter_ns()
         self.seconds = (end - self._start) / 1e9
         if self._ids is not None:
-            _close(self.name, self._start, end, self._ids)
+            _close(self.name, self._start, end, self._ids, self.info)
         return False
 
 

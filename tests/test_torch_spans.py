@@ -12,9 +12,11 @@ import gc
 import json
 import os
 
+import numpy as np
 import pytest
 import torch
 
+from blockmaze_tpu_torch.fields import tfield as tf
 from blockmaze_tpu_torch.fields.constants import R_MOD
 from blockmaze_tpu_torch.groth16 import generator, keys
 from blockmaze_tpu_torch.groth16.prover import Prover
@@ -239,6 +241,38 @@ def test_timings_keep_their_keys_with_the_recorder_off(prover_runs):
     assert list(prover_runs["prove off"]) == list(prover_runs["prove"][1])
     assert list(prover_runs["batch off"]) == list(prover_runs["batch"][1])
     assert prover_runs["off spans"] == []
+
+
+def test_limbs_span_counts_wide_wires_and_proofs_keep_their_limbs(
+        monkeypatch, recorder):
+    """prover.limbs' info counts the wires and those at or above 2^64; two
+    proofs on one Prover (its limb buffer reused) upload each witness's
+    own limbs, still intact after the second."""
+    big = 2**100 + 7
+    pbs = [toy_circuit(w * w % R_MOD, w) for w in (big, 5)]
+    toxic = iter([3, 5, 7, 11, 13])
+    pk, _ = generator.generate(pbs[0], "cpu", rng=lambda: next(toxic))
+    monkeypatch.setattr(pp, "msm_stream", infinity_msm)
+    dpk = keys.build_device_pk(pk)
+    prover = Prover(dpk, "cpu", lanes=8, window=4)
+    uploaded = []
+
+    def upload(limbs, _upload=prover._upload):
+        uploaded.append(_upload(limbs))
+        return uploaded[-1]
+
+    monkeypatch.setattr(prover, "_upload", upload)
+    for pb in pbs:
+        prover.prove(pb.primary_input(), pb.auxiliary_input(), r=7, s=9)
+    spans.disable()
+    infos = [s.info for s in spans.drain() if s.name == "prover.limbs"]
+    wires = [[1] + pb.primary_input() + pb.auxiliary_input() for pb in pbs]
+    assert infos == [{"wires": dpk.num_variables + 1,
+                      "wide": sum(x >= 2**64 for x in w)} for w in wires]
+    assert infos[0]["wide"] > 0 == infos[1]["wide"]
+    for (std, _), w in zip(uploaded, wires):
+        assert np.array_equal(std.numpy().view(np.uint32),
+                              tf.ints_to_limbs(w))
 
 
 # -- ZkTx's spans -----------------------------------------------------------
