@@ -538,9 +538,17 @@ def msm(curve: str, points, scalars, c: int, lanes: int, blind=None):
     """sum_i scalars_i * points_i as a Jacobian point (X, Y, Z) of int32
     coordinate tensors without batch axis; with blind=(Rx, Ry) the result
     is (X, Y, Z, wts) with wts the (W,) int64 per-window counts of R.
-    lanes is the most accumulation lanes (lane_cut)."""
-    return msm_stream(curve, points, live_stream(points, scalars, c), c,
-                      lanes, blind)
+    lanes is the most accumulation lanes (lane_cut). Recorded as the span
+    msm.query, the live stream inside it as msm.stream (utils/spans.py)."""
+    with spans.span("msm.query") as query:
+        with spans.span("msm.stream"):
+            stream = live_stream(points, scalars, c)
+        live = stream[0].shape[0]
+        T, L = lane_cut(live, lanes) if live else (0, 0)
+        query.info = {"curve": curve, "points": points[0].shape[0], "c": c,
+                      "windows": n_windows(c), "live": live, "lanes": T,
+                      "per_lane": L}
+        return msm_stream(curve, points, stream, c, lanes, blind)
 
 
 def msm_stream(curve: str, points, stream, c: int, lanes: int, blind=None,

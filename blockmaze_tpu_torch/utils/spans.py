@@ -12,9 +12,10 @@ and are kept in memory, per process, until drain() takes them out: work
 in another process (prove_batch's host workers) records nothing here.
 
 Off, span() returns one shared no-op context manager (NOOP) and records
-nothing. A span never synchronises the device: where one covers a wait
-for the card (device.wait, prover.fetch), the code inside it waits, as
-it would without the span.
+nothing. A dict put in the `info` of what span() returns is the recorded
+span's info; NOOP drops it. A span never synchronises the device: where
+one covers a wait for the card (device.wait, prover.fetch), the code
+inside it waits, as it would without the span.
 
 While the recorder is on, a gc.callbacks hook records each collection of
 the interpreter's cyclic garbage collector as a span host.gc, nested under
@@ -39,6 +40,12 @@ The spans the port opens, by layer (`layer.stage`):
   left the native pass for Python's), prover.upload, prover.blinds
   (prove's two make_blind), prover.fetch, prover.unblind, prover.group
   and prover.submit (groth16/prover.py);
+- msm: msm.query, one MSM on one card (msm/pippenger.py msm, which the
+  Prover calls five times a proof), its info {"curve", "points", "c",
+  "windows": W, "live": the stream's items, "lanes": T, "per_lane": L}
+  (lane_cut's T and L; both 0 for an empty stream), host ints the code
+  holds anyway; inside it msm.stream, the live stream: digits, window
+  keys, the partition with its live count (device.wait) and the sort;
 - device.wait: every blocking read of the card on the proof path: the
   Prover's synchronise at the end of each lap and the live count of each
   MSM's stream (msm/pippenger.py sort_live);
@@ -70,8 +77,16 @@ class Span(NamedTuple):
 
 class _Noop:
     """The shared context manager span() returns while the recorder is
-    off."""
+    off; what is put in its info is dropped."""
     __slots__ = ()
+
+    @property
+    def info(self):
+        return None
+
+    @info.setter
+    def info(self, value):
+        pass
 
     def __enter__(self):
         return self

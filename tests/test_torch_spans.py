@@ -144,7 +144,8 @@ PROVE_TREE = {
     "prover.blinds": ("prover.wires", 1),
     "prover.fetch": ("prover.combine", 1),
     "prover.unblind": ("prover.combine", 1),
-    "prover.group": ("prover.combine", 1)}
+    "prover.group": ("prover.combine", 1),
+    "msm.query": ("prover.msm", 5), "msm.stream": ("msm.query", 5)}
 BATCH_TREE = {
     "prover.blinds": ("prover.prove_batch", 1),
     "prover.dispatch": ("prover.prove_batch", 1),
@@ -152,7 +153,8 @@ BATCH_TREE = {
     "prover.limbs": ("prover.dispatch", 2),
     "prover.upload": ("prover.dispatch", 2),
     "prover.fetch": ("prover.dispatch", 2),
-    "prover.submit": ("prover.dispatch", 2)}
+    "prover.submit": ("prover.dispatch", 2),
+    "msm.query": ("prover.dispatch", 10)}
 
 
 def infinity_msm(curve, points, stream, c, lanes, blind=None, step=None):
@@ -214,9 +216,10 @@ def test_prove_span_tree(prover_runs):
     recorded, timings = prover_runs["prove"]
     names, ids = check_tree(recorded, "prover.prove", PROVE_TREE)
     waits = names["device.wait"]
-    # one live count per MSM under prover.msm, one closing sync a lap
+    # one live count per MSM in its msm.stream, one closing sync a lap
     under_msm = [s for s in waits if ids[s.parent].name == "prover.msm"]
-    assert len(under_msm) == 6
+    in_stream = [s for s in waits if ids[s.parent].name == "msm.stream"]
+    assert len(under_msm) == 1 and len(in_stream) == 5
     for lap in ("wires", "qap", "msm", "combine"):
         (span,) = names["prover." + lap]
         assert timings[lap] == (span.end - span.start) / 1e9
@@ -275,6 +278,43 @@ def test_limbs_span_counts_wide_wires_and_proofs_keep_their_limbs(
                               tf.ints_to_limbs(w))
 
 
+def test_msm_query_spans_hold_the_stream_and_its_lane_cut(monkeypatch,
+                                                         recorder):
+    """msm.query: one a MSM, five a prove, each under prover.msm with its
+    msm.stream (the live count's wait inside it), and its info the live
+    items peaks.msm_round_counts counts on the same inputs and the lanes
+    lane_cut cuts them into; with the recorder off, nothing is recorded."""
+    from portbench import peaks
+    w = 5551212
+    pb = toy_circuit(w * w % R_MOD, w)
+    toxic = iter([3, 5, 7, 11, 13])
+    pk, _ = generator.generate(pb, "cpu", rng=lambda: next(toxic))
+    monkeypatch.setattr(pp, "msm_stream", infinity_msm)
+    prover = Prover(keys.build_device_pk(pk), "cpu", lanes=8, window=4)
+    inst = (pb.primary_input(), pb.auxiliary_input())
+    prover.prove(*inst, r=7, s=9)
+    spans.disable()
+    names, ids = check_tree(spans.drain(), "prover.prove", PROVE_TREE)
+    queries = names["msm.query"]
+    assert len(queries) == len(prover.msm_inputs) == 5
+    lives = []
+    for q, (name, (pts, scalars)) in zip(queries, prover.msm_inputs.items()):
+        curve = "g2" if name == "B g2" else "g1"
+        live, _ = peaks.msm_round_counts(curve, pts[2], scalars, 4, 8,
+                                         pp.MIN_ITEMS)
+        T, L = pp.lane_cut(live, 8) if live else (0, 0)
+        assert q.info == {"curve": curve, "points": pts[0].shape[0], "c": 4,
+                          "windows": pp.n_windows(4), "live": live,
+                          "lanes": T, "per_lane": L}, name
+        lives.append(live)
+    assert sum(lives) > 0
+    for st in names["msm.stream"]:
+        (wait,) = [s for s in names["device.wait"] if s.parent == st.id]
+        assert inside(wait, st)
+    prover.prove(*inst, r=7, s=9)
+    assert spans.drain() == []
+
+
 # -- ZkTx's spans -----------------------------------------------------------
 
 @pytest.mark.parametrize("name", ["mint", "send", "deposit", "redeem"])
@@ -323,12 +363,17 @@ class SpanMaker:
         return s
 
 
-def prove_window():
+def prove_window(msm_spans=True):
     """Two proofs, 100 ms each: laps wires 0-40 (limbs 0-20 with a 5-ms
-    collection, upload 20-30, blinds 30-40), qap 40-45, msm 45-70 (waits
-    50-52 and 60-63), combine 70-100 (fetch 70-72, unblind 72-90, group
-    90-99)."""
+    collection, upload 20-30, blinds 30-40), qap 40-45, msm 45-70 (two
+    MSMs, msm.query 46-58 and 59-69, each with its msm.stream, 47-53 and
+    59-64, around a wait, 50-52 and 60-63; without msm_spans, as a program
+    without them records, the waits alone), combine 70-100 (fetch 70-72,
+    unblind 72-90, group 90-99). The MSMs' live items: 3.0M and 1.5M, then
+    2.0M and 1.0M; their lanes' items: 320 and 65, then 176 and 65."""
     b = SpanMaker()
+    queries = [((3_000_000, 320), (1_500_000, 65)),
+               ((2_000_000, 176), (1_000_000, 65))]
     for k in range(2):
         t = 100 * k
         root = b.add("prover.prove", t, t + 100)
@@ -339,8 +384,18 @@ def prove_window():
         b.add("prover.blinds", t + 30, t + 40, wires)
         b.add("prover.qap", t + 40, t + 45, root)
         msm = b.add("prover.msm", t + 45, t + 70, root)
-        b.add("device.wait", t + 50, t + 52, msm)
-        b.add("device.wait", t + 60, t + 63, msm)
+        for (q0, q1, s0, s1, w0, w1), (live, per_lane) in zip(
+                ((46, 58, 47, 53, 50, 52), (59, 69, 59, 64, 60, 63)),
+                queries[k]):
+            parent = msm
+            if msm_spans:
+                query = b.add("msm.query", t + q0, t + q1, msm,
+                              {"curve": "g1", "points": 1 << 20, "c": 13,
+                               "windows": 20, "live": live,
+                               "lanes": -(-live // per_lane),
+                               "per_lane": per_lane})
+                parent = b.add("msm.stream", t + s0, t + s1, query)
+            b.add("device.wait", t + w0, t + w1, parent)
         combine = b.add("prover.combine", t + 70, t + 100, root)
         b.add("prover.fetch", t + 70, t + 72, combine)
         b.add("prover.unblind", t + 72, t + 90, combine)
@@ -393,6 +448,11 @@ READINGS = [
     ("host.gc_ms.prove", "prove", 5.0), ("batch.limbs_ms", "batch", 8.0),
     ("batch.wait_ms", "batch", 7.5), ("zktx.witness_s", "tx", 0.6),
     ("host.gc_ms.tx", "tx", 50.0)]
+# Readers of the msm.query and msm.stream spans, not yet listed in
+# span_metrics.json
+MSM_READINGS = [("msm.stream_ms", "prove", 11.0),
+                ("msm.live_mitems", "prove", 3.75),
+                ("msm.lane_items_max", "prove", 248.0)]
 WINDOWS = {"prove": (prove_window, [{}] * 2),
            "batch": (batch_window, [{"proofs": [1, 2]}]),
            "tx": (tx_window, [{}] * 2)}
@@ -403,7 +463,7 @@ def reader(name):
                                          name + ".py"))
 
 
-@pytest.mark.parametrize("name,kind,want", READINGS)
+@pytest.mark.parametrize("name,kind,want", READINGS + MSM_READINGS)
 def test_span_metric_readers(name, kind, want):
     window, records = WINDOWS[kind]
     read = reader(name).read
@@ -413,6 +473,15 @@ def test_span_metric_readers(name, kind, want):
     assert read(FakeRun(other, WINDOWS[other][0](), WINDOWS[other][1])) \
         is None
     assert read(FakeRun(kind, None, records)) is None     # untraced run
+
+
+@pytest.mark.parametrize("name", [n for n, _, _ in MSM_READINGS])
+def test_msm_readers_read_nothing_without_msm_spans(name):
+    """A program that records no msm.query or msm.stream (one older than
+    these spans) reads as nothing, not as 0, and raises nothing."""
+    run = FakeRun("prove", prove_window(msm_spans=False), [{}] * 2)
+    assert reader(name).read(run) is None
+    assert reader("msm.wait_ms").read(run) == pytest.approx(5.0)
 
 
 def test_span_metrics_file_matches_its_readers():
@@ -468,7 +537,8 @@ def test_idle_goes_to_the_innermost_span():
 def test_span_seconds_counts_inclusive_and_self_time():
     got = spantree.span_seconds(prove_window())
     assert got["prover.prove"] == pytest.approx([2, 0.2, 0.0])
-    assert got["prover.msm"] == pytest.approx([2, 0.05, 0.04])
+    assert got["prover.msm"] == pytest.approx([2, 0.05, 0.006])
+    assert got["msm.query"] == pytest.approx([4, 0.044, 0.022])
     assert got["prover.limbs"] == pytest.approx([2, 0.04, 0.03])
     assert list(got)[0] == "prover.prove"
     assert spantree.gc_by_generation(tx_window()) == {
