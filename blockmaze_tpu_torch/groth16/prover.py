@@ -47,8 +47,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..curves import host_curve as HC
-from ..curves import tcurve as tc
+from ..curves import native
 from ..fields import tfield as tf
 from ..fields.constants import R_MOD
 from ..msm import pippenger as pp
@@ -105,7 +104,9 @@ class Prover:
     prover.blinds: two make_blind on the host), qap, msm (the MSMs, each
     waiting for its live count) and combine (prover.fetch: the MSMs'
     results to the host; prover.unblind; prover.group: A, B and C); after
-    prove_batch, see there."""
+    prove_batch, see there. prover.blinds, prover.unblind and
+    prover.group run the native group law (curves/native.py) and carry
+    {"muls": n}, its scalar products: 2, 5 and 6 a proof."""
 
     def __init__(self, dpk, device="cuda", lanes: Optional[int] = None,
                  window: Optional[int] = None, mesh=None):
@@ -161,6 +162,7 @@ class Prover:
         # A non-blocking upload would make this reuse unsafe.
         self._limb_buf = np.empty((dpk.num_variables + 1, tf.N), np.uint32)
         _wire_lib()     # built now, not inside the first proof
+        native.lib()
         self._pool = None
         self.timings = {}
         self.msm_inputs = {}
@@ -182,7 +184,7 @@ class Prover:
         """The lap prover.<label>, the device synchronised at its end, its
         seconds into timings[label]."""
         with spans.Timed("prover." + label, sync=self._sync) as lap:
-            yield
+            yield lap
         self.timings[label] = lap.seconds
 
     def _msm(self, name, curve, pts, scalars, n, blind):
@@ -251,7 +253,7 @@ class Prover:
                 pp.blind_scalar(), pp.blind_scalar()))
             limbs, _ = self._limbs(primary, aux)
             wires_std, wires_mont = self._upload(limbs)
-            with spans.span("prover.blinds"):
+            with _muls(spans.span("prover.blinds")):
                 (R1, b1), (R2, b2) = self._blinds(k1, k2)
 
         with self._lap("qap"):
@@ -296,14 +298,14 @@ class Prover:
         There is no batch axis through the kernels: this thread turns each
         witness into limbs, uploads it and runs its QAP and MSMs (waiting
         for the device at each MSM's live count and for its results), with
-        no sync between phases; the host combine of each proof (Python
-        integer group arithmetic, most of a proof's host time) runs in
-        worker processes meanwhile, outside this interpreter's lock.
+        no sync between phases; the host combine of each proof (the
+        native group law's unblinding and A, B, C) runs in worker
+        processes meanwhile, outside this interpreter's lock.
 
         timings holds the batch's laps, each the span prover.<lap>
         (utils/spans.py), timed whether or not the recorder is on and ended
         by a synchronise of the device: blinds (the draws and the batch's
-        blind pair), dispatch (this thread's loop: per witness
+        blind pair; {"muls": 2}), dispatch (this thread's loop: per witness
         prover.limbs, prover.upload, the QAP and MSMs, prover.fetch and
         prover.submit to a worker) and drain (the combines left after it);
         and limbs, the prover.limbs spans' seconds summed. The combines'
@@ -322,7 +324,7 @@ class Prover:
             return []
         self.timings = {"limbs": 0.0}
         self.msm_inputs = {}
-        with self._lap("blinds"):
+        with _muls(self._lap("blinds")):
             rs, ss, k1, k2 = self._shared((rs, ss, pp.blind_scalar(),
                                            pp.blind_scalar()))
             (R1, b1), (R2, b2) = self._blinds(k1, k2)
@@ -359,8 +361,7 @@ class Prover:
             self._pool = None
 
 
-# prove_batch's host combine processes: one proof's combine costs about
-# what the dispatching thread spends on one to two proofs
+# prove_batch's host combine processes
 HOST_WORKERS = max(1, min(4, (os.cpu_count() or 1) - 1))
 
 
@@ -409,32 +410,32 @@ def _to_numpy(msms):
 
 
 def _combine(consts, c: int, msms, R1, R2, r: int, s: int) -> Proof:
-    """The host half of a proof: each MSM (X, Y, Z, blind window counts as
-    numpy arrays, in _msms' order) to affine, less its blind's surplus
-    against R1 or R2 (the span prover.unblind), then A, B and C with r and
-    s (prover.group). consts: the key's (alpha_g1, beta_g1, beta_g2,
-    delta_g1, delta_g2). A module-level function of picklable arguments,
-    so prove_batch's worker processes run it; there its spans are not
-    recorded (the recorder is per process)."""
-    alpha_g1, beta_g1, beta_g2, delta_g1, delta_g2 = consts
+    """The host half of a proof in the native group law (curves/native.py):
+    each MSM (X, Y, Z, blind window counts as numpy arrays, in _msms'
+    order) from the card's Jacobian limbs to affine, less its blind's
+    surplus against R1 or R2 (the span prover.unblind, five scalar
+    products), then A, B and C with r and s (prover.group, six). consts:
+    the key's (alpha_g1, beta_g1, beta_g2, delta_g1, delta_g2). A
+    module-level function of picklable arguments, so prove_batch's worker
+    processes run it; there its spans are not recorded (the recorder is
+    per process)."""
     At, Bt2, Bt1, Ht, Lt = msms
+    with _muls(spans.span("prover.unblind")):
+        At_h, Bt1_h, Ht_h, Lt_h = (pp.unblind_result("g1", res, R1, c)
+                                   for res in (At, Bt1, Ht, Lt))
+        Bt2_h = pp.unblind_result("g2", Bt2, R2, c)
 
-    def g1(res):
-        pt = tc.g1_jacobian_to_host(tuple(v[None] for v in res[:3]))[0]
-        return pp.unblind_msm("g1", pt, res[3], R1, c)
+    with _muls(spans.span("prover.group")):
+        A, B, C = native.combine(consts, (At_h, Bt2_h, Bt1_h, Ht_h, Lt_h),
+                                 r, s)
+    return Proof(a=A, b=B, c=C)
 
-    with spans.span("prover.unblind"):
-        At_h, Bt1_h, Ht_h, Lt_h = g1(At), g1(Bt1), g1(Ht), g1(Lt)
-        Bt2_h = pp.unblind_msm(
-            "g2", tc.g2_jacobian_to_host(tuple(v[None] for v in Bt2[:3]))[0],
-            Bt2[3], R2, c)
 
-    with spans.span("prover.group"):
-        g1_A = HC.g1_add(HC.g1_add(alpha_g1, At_h), HC.g1_mul(delta_g1, r))
-        g1_B = HC.g1_add(HC.g1_add(beta_g1, Bt1_h), HC.g1_mul(delta_g1, s))
-        g2_B = HC.g2_add(HC.g2_add(beta_g2, Bt2_h), HC.g2_mul(delta_g2, s))
-        g1_C = HC.g1_add(
-            HC.g1_add(HC.g1_add(Ht_h, Lt_h), HC.g1_mul(g1_A, s)),
-            HC.g1_add(HC.g1_mul(g1_B, r),
-                      HC.g1_neg(HC.g1_mul(delta_g1, r * s % R_MOD))))
-    return Proof(a=g1_A, b=g2_B, c=g1_C)
+@contextlib.contextmanager
+def _muls(span):
+    """span entered; its info {"muls": the native scalar products this
+    thread made inside it}."""
+    with span as sp:
+        n = native.muls()
+        yield
+        sp.info = {"muls": native.muls() - n}

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from ..curves import host_curve as HC
+from ..curves import native
 from ..curves import tcurve as tc
 from ..fields import tfield as tf
 from ..fields.constants import R_MOD
@@ -592,30 +593,39 @@ def blind_scalar() -> int:
 
 
 def make_blind(curve: str, device, k: int | None = None):
-    """Blind R = k*G, k = blind_scalar() unless given. Returns (R host
-    affine, (Rx, Ry) Montgomery int32 tensors on `device`)."""
+    """Blind R = k*G, k = blind_scalar() unless given (one native scalar
+    product, curves/native.py). Returns (R host affine, (Rx, Ry)
+    Montgomery int32 tensors on `device`)."""
     k = blind_scalar() if k is None else k
     if curve == "g1":
-        R = HC.g1_mul(HC.g1_generator(), k)
+        R = native.mul("g1", HC.g1_generator(), k)
         X, Y, _ = tc.g1_affine_to_device([R])
     else:
-        R = HC.g2_mul(HC.g2_generator(), k)
+        R = native.mul("g2", HC.g2_generator(), k)
         X, Y, _ = tc.g2_affine_to_device([R])
     return R, (tf.to_tensor(X[0], device), tf.to_tensor(Y[0], device))
 
 
-def unblind_msm(curve: str, host_pt, wts, R_host, c: int):
-    """host_pt - (sum_w 2^{c*w} * wts[w]) * R. wts is (W,), or (k, W)
-    stacked from the k partials of a sharded MSM, whose columns are summed
-    per window."""
+def surplus(wts, c: int) -> int:
+    """The blind's multiple m = sum_w 2^{c*w} * wts[w] mod r. wts is (W,),
+    or (k, W) stacked from the k partials of a sharded MSM, whose columns
+    are summed per window."""
     w = np.asarray(wts, dtype=np.int64)
     w = w.reshape(-1, w.shape[-1])
     m = 0
     for i in range(w.shape[1]):
         m = (m + (sum(int(x) for x in w[:, i]) << (c * i))) % R_MOD
-    if m == 0:
-        return host_pt
-    if curve == "g1":
-        return HC.g1_add(host_pt, HC.g1_neg(HC.g1_mul(R_host, m)))
-    return HC.g2_add(host_pt, HC.g2_neg(HC.g2_mul(R_host, m)))
+    return m
 
+
+def unblind_msm(curve: str, host_pt, wts, R_host, c: int):
+    """host_pt - surplus(wts, c) * R, host affine (one native scalar
+    product)."""
+    return native.msub(curve, host_pt, R_host, surplus(wts, c))
+
+
+def unblind_result(curve: str, res, R_host, c: int):
+    """An MSM's result (X, Y, Z, wts) as the card returns it (numpy: X, Y,
+    Z Jacobian Montgomery limbs, wts the window counts) to host affine,
+    less surplus(wts, c) * R, in one native call (one scalar product)."""
+    return native.unblind(curve, res[:3], R_host, surplus(res[3], c))

@@ -1,11 +1,11 @@
 """Pre-warm what a fresh process would otherwise pay inside its first
 proof. The port has no compile cache: warming is building the kernel
-library (nvcc, into blockmaze_tpu_torch/_build/), the host tokenizer and
-the prover's witness limbs (g++), resolving every named circuit's key, so
-that a fresh tree runs keygen here once (the seeded keys of
-blockmaze_tpu_torch/_keys/; or --key-dir D's text keys, whose npz cache
-is written beside them), and one proof a circuit at (r, s) = (1, 2),
-verified.
+library (nvcc, into blockmaze_tpu_torch/_build/), the host tokenizer,
+the prover's witness limbs and its host group law (g++), resolving every
+named circuit's key, so that a fresh tree runs keygen here once (the
+seeded keys of blockmaze_tpu_torch/_keys/; or --key-dir D's text keys,
+whose npz cache is written beside them), and one proof a circuit at
+(r, s) = (1, 2), verified.
 
     python -m blockmaze_tpu_torch.scripts.prewarm
         [--circuits mint,send,redeem,deposit[,deposit20]] [--key-dir D]
@@ -18,6 +18,7 @@ import sys
 import time
 
 from ..circuits import instances
+from ..curves import native
 from ..groth16 import verifier
 from ..groth16.prover import Prover
 from ..utils import kernels as kn
@@ -43,9 +44,10 @@ def main(argv=None):
         kn.LIB.get()
     tokenizer = kn.host_library("keyparse.cpp")
     limbs = kn.host_library("wirelimbs.cpp", kn.PY_HOST_FLAGS)
+    group = native.lib()._name
     t_build = time.perf_counter() - t0
     cm.say(f"kernels {library}, tokenizer {tokenizer}, witness limbs "
-           f"{limbs}: {t_build:.1f}s")
+           f"{limbs}, group law {group}: {t_build:.1f}s")
     summary = {"metric": "prewarm", "device": str(dev),
                "build_s": t_build, "circuits": []}
     kn.reset_counts()

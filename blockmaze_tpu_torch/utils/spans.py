@@ -39,7 +39,9 @@ The spans the port opens, by layer (`layer.stage`):
   {"wires": n, "wide": k}: the witness's n rows and the k of them that
   left the native pass for Python's), prover.upload, prover.blinds
   (prove's two make_blind), prover.fetch, prover.unblind, prover.group
-  and prover.submit (groth16/prover.py);
+  and prover.submit (groth16/prover.py); prover.blinds (in prove and
+  prove_batch), prover.unblind and prover.group carry {"muls": n}, the
+  scalar products of curves/native.py they made (2, 5, 6 a proof);
 - msm: msm.query, one MSM on one card (msm/pippenger.py msm, which the
   Prover calls five times a proof), its info {"curve", "points", "c",
   "windows": W, "live": the stream's items, "lanes": T, "per_lane": L}
