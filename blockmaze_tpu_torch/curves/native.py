@@ -1,6 +1,6 @@
 """The proof's host group law in native code: csrc/hostcurve.cpp, built
-with g++ at first use (utils/kernels.host_library) and loaded with
-ctypes.CDLL, so the interpreter lock is released through each call.
+with g++ at first use and bound by utils/kernels.host_lib (its HOST_LIBS
+entry: -O3, the interpreter lock released through each call).
 
 Points are host affine tuples as curves/host_curve.py has them, (x, y,
 inf) for G1 and ((x0, x1), (y0, y1), inf) for G2, with (0, 0, 1) and
@@ -15,7 +15,6 @@ prover.group carry their rise as {"muls": n}."""
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import numpy as np
 
@@ -26,22 +25,9 @@ WORDS = {"g1": 9, "g2": 17}         # 64-bit words of an affine point
 _FQ_LIMBS = {"g1": 16, "g2": 32}    # card limbs of one coordinate
 
 
-@functools.cache
 def lib():
-    """csrc/hostcurve.cpp's library, built now (g++ -O3) if that source
-    has not been built yet."""
-    dll = ctypes.CDLL(kn.host_library("hostcurve.cpp", ["-O3"]))
-    P, I = ctypes.c_void_p, ctypes.c_int
-    for name, args in (("bm_hc_mul", [I, P, P, P]),
-                       ("bm_hc_add", [I, P, P, P]),
-                       ("bm_hc_msub", [I, P, P, P, P]),
-                       ("bm_hc_unblind", [I, P, P, P, P, P, P]),
-                       ("bm_hc_combine", [P, P, P, P]),
-                       ("bm_hc_muls", [])):
-        fn = getattr(dll, name)
-        fn.argtypes = args
-        fn.restype = ctypes.c_longlong if name == "bm_hc_muls" else I
-    return dll
+    """csrc/hostcurve.cpp's library, built and bound at the first call."""
+    return kn.host_lib("hostcurve.cpp")
 
 
 def muls() -> int:

@@ -36,12 +36,8 @@ the same proof. A proof equals the single-card proof at the same (r, s).
 from __future__ import annotations
 
 import contextlib
-import ctypes
-import functools
-import multiprocessing
-import os
 import secrets
-from concurrent.futures import ProcessPoolExecutor
+from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional
 
 import numpy as np
@@ -106,7 +102,10 @@ class Prover:
     results to the host; prover.unblind; prover.group: A, B and C); after
     prove_batch, see there. prover.blinds, prover.unblind and
     prover.group run the native group law (curves/native.py) and carry
-    {"muls": n}, its scalar products: 2, 5 and 6 a proof."""
+    {"muls": n}, its scalar products: 2, 5 and 6 a proof.
+
+    prove_batch starts one combine thread, which close() stops (a later
+    prove_batch starts it again)."""
 
     def __init__(self, dpk, device="cuda", lanes: Optional[int] = None,
                  window: Optional[int] = None, mesh=None):
@@ -161,7 +160,8 @@ class Prover:
         # copy to the card; a clone on the CPU), so no proof reads another's.
         # A non-blocking upload would make this reuse unsafe.
         self._limb_buf = np.empty((dpk.num_variables + 1, tf.N), np.uint32)
-        _wire_lib()     # built now, not inside the first proof
+        # the host libraries built now, not inside the first proof
+        kn.host_lib("wirelimbs.cpp")
         native.lib()
         self._pool = None
         self.timings = {}
@@ -298,19 +298,22 @@ class Prover:
         There is no batch axis through the kernels: this thread turns each
         witness into limbs, uploads it and runs its QAP and MSMs (waiting
         for the device at each MSM's live count and for its results), with
-        no sync between phases; the host combine of each proof (the
-        native group law's unblinding and A, B, C) runs in worker
-        processes meanwhile, outside this interpreter's lock.
+        no sync between phases; the host combine of each proof (_combine:
+        the native group law's unblinding and A, B, C, which releases the
+        interpreter lock) runs meanwhile on the Prover's combine thread.
+        The overlap rests on this thread releasing the lock too, as it
+        does at every torch call and every wait for the device.
 
         timings holds the batch's laps, each the span prover.<lap>
         (utils/spans.py), timed whether or not the recorder is on and ended
         by a synchronise of the device: blinds (the draws and the batch's
         blind pair; {"muls": 2}), dispatch (this thread's loop: per witness
         prover.limbs, prover.upload, the QAP and MSMs, prover.fetch and
-        prover.submit to a worker) and drain (the combines left after it);
-        and limbs, the prover.limbs spans' seconds summed. The combines'
-        own spans (prover.unblind, prover.group) are not recorded: spans
-        are per process, and the workers' time shows as drain."""
+        prover.submit to the combine thread) and drain (the combines left
+        after it); and limbs, the prover.limbs spans' seconds summed. Each
+        combine's spans, prover.unblind and prover.group, are recorded on
+        the combine thread as children of this call's prover.prove_batch
+        (spans.carry)."""
         for primary, aux in instances:
             self._check_sizes(primary, aux)
         B = len(instances)
@@ -324,6 +327,7 @@ class Prover:
             return []
         self.timings = {"limbs": 0.0}
         self.msm_inputs = {}
+        combine = spans.carry(_combine)
         with _muls(self._lap("blinds")):
             rs, ss, k1, k2 = self._shared((rs, ss, pp.blind_scalar(),
                                            pp.blind_scalar()))
@@ -338,44 +342,27 @@ class Prover:
                 H_std = self._qap(wires_mont)
                 msms = _to_numpy(self._msms(wires_std, H_std, b1, b2))
                 with spans.span("prover.submit"):
-                    proofs.append(pool.submit(_combine, self._consts,
+                    proofs.append(pool.submit(combine, self._consts,
                                               self.window, msms, R1, R2, r,
                                               s))
         with self._lap("drain"):
             proofs = [p.result() for p in proofs]
         return proofs
 
-    def _host_pool(self) -> ProcessPoolExecutor:
-        """prove_batch's worker processes (spawned, so no CUDA state is
-        inherited), started at its first call and kept until close()."""
+    def _host_pool(self) -> ThreadPoolExecutor:
+        """prove_batch's combine thread: one, since a combine is a few ms
+        of native work beside tens of ms of dispatch a proof; started at
+        the first prove_batch after construction or close()."""
         if self._pool is None:
-            self._pool = ProcessPoolExecutor(
-                max_workers=HOST_WORKERS,
-                mp_context=multiprocessing.get_context("spawn"))
+            self._pool = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="prover-combine")
         return self._pool
 
     def close(self):
-        """Stop prove_batch's worker processes, if any were started."""
+        """Stop prove_batch's combine thread, if one was started."""
         if self._pool is not None:
             self._pool.shutdown()
             self._pool = None
-
-
-# prove_batch's host combine processes
-HOST_WORKERS = max(1, min(4, (os.cpu_count() or 1) - 1))
-
-
-@functools.cache
-def _wire_lib():
-    """csrc/wirelimbs.cpp's bm_wire_limbs, built at first use (g++, with
-    the interpreter's headers) and loaded with the interpreter lock held
-    through each call (ctypes.PyDLL)."""
-    fn = ctypes.PyDLL(kn.host_library("wirelimbs.cpp",
-                                      kn.PY_HOST_FLAGS)).bm_wire_limbs
-    fn.argtypes = [ctypes.py_object, ctypes.py_object, ctypes.c_void_p,
-                   ctypes.c_longlong, ctypes.c_void_p]
-    fn.restype = ctypes.c_longlong
-    return fn
 
 
 def _wire_limbs(primary, aux, out: np.ndarray):
@@ -394,7 +381,8 @@ def _wire_limbs(primary, aux, out: np.ndarray):
         raise ValueError(f"limbs of {n} wires need a C-contiguous ({n}, "
                          f"{tf.N}) uint32 array, got {out.shape} {out.dtype}")
     rows = np.empty(n, np.int64)
-    k = _wire_lib()(primary, aux, out.ctypes.data, n, rows.ctypes.data)
+    k = kn.host_lib("wirelimbs.cpp").bm_wire_limbs(
+        primary, aux, out.ctypes.data, n, rows.ctypes.data)
     for row in rows[:k].tolist():
         x = primary[row - 1] if row <= len(primary) else \
             aux[row - 1 - len(primary)]
@@ -415,10 +403,8 @@ def _combine(consts, c: int, msms, R1, R2, r: int, s: int) -> Proof:
     order) from the card's Jacobian limbs to affine, less its blind's
     surplus against R1 or R2 (the span prover.unblind, five scalar
     products), then A, B and C with r and s (prover.group, six). consts:
-    the key's (alpha_g1, beta_g1, beta_g2, delta_g1, delta_g2). A
-    module-level function of picklable arguments, so prove_batch's worker
-    processes run it; there its spans are not recorded (the recorder is
-    per process)."""
+    the key's (alpha_g1, beta_g1, beta_g2, delta_g1, delta_g2). prove
+    runs it inline, prove_batch on the combine thread."""
     At, Bt2, Bt1, Ht, Lt = msms
     with _muls(spans.span("prover.unblind")):
         At_h, Bt1_h, Ht_h, Lt_h = (pp.unblind_result("g1", res, R1, c)

@@ -5,7 +5,7 @@ The witnesses vary per slot (values and randomness, batch_instance). The
 first batch runs at r = 1..B, s = 51..50+B; --reps more batches at random
 (r, s) are timed and printed as s/proof and proofs/s beside B times the
 steady single proof of the same run. prove_batch runs each proof's host
-combine in worker processes, which the first batch starts.
+combine on the Prover's combine thread, which the first batch starts.
 
     python -m blockmaze_tpu_torch.scripts.batch [--circuit mint|deposit]
         [--batch 8] [--reps 2] [--lanes N] [--key-dir D] [--device cuda]
@@ -76,7 +76,7 @@ def prove_batches(prover, vk, insts, rs, ss, reps: int, dev):
 
     first, t = run(rs, ss)
     cm.say(f"prove_batch (first, at r = {rs[0]}.., s = {ss[0]}..; starts "
-           f"the workers): {t:.3f}s; every proof verified")
+           f"the combine thread): {t:.3f}s; every proof verified")
     times = [t]
     for _ in range(reps):
         _, t = run(None, None)

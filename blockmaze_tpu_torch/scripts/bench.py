@@ -196,7 +196,7 @@ def run(circuits, dev, reps: int, lanes=None, window=None, key_dir=None,
     if dev.type == "cuda":
         out["library"] = ("load" if os.path.exists(kn.library_path())
                           else "build")
-        kn.LIB.get()
+        kn.kernel_lib()
     out["build_sec"] = time.perf_counter() - t0
     cm.say(f"device init {out['init_sec']:.2f}s, kernel library "
            f"({out['library']}): {out['build_sec']:.2f}s")

@@ -1,11 +1,12 @@
 """Pre-warm what a fresh process would otherwise pay inside its first
 proof. The port has no compile cache: warming is building the kernel
-library (nvcc, into blockmaze_tpu_torch/_build/), the host tokenizer,
-the prover's witness limbs and its host group law (g++), resolving every
-named circuit's key, so that a fresh tree runs keygen here once (the
-seeded keys of blockmaze_tpu_torch/_keys/; or --key-dir D's text keys,
-whose npz cache is written beside them), and one proof a circuit at
-(r, s) = (1, 2), verified.
+library (nvcc, into blockmaze_tpu_torch/_build/) and every host library
+of utils/kernels.HOST_LIBS (g++: the tokenizer, the prover's witness
+limbs and its host group law), resolving every named circuit's key, so
+that a fresh tree runs keygen here once (the seeded keys of
+blockmaze_tpu_torch/_keys/; or --key-dir D's text keys, whose npz cache
+is written beside them), and one proof a circuit at (r, s) = (1, 2),
+verified.
 
     python -m blockmaze_tpu_torch.scripts.prewarm
         [--circuits mint,send,redeem,deposit[,deposit20]] [--key-dir D]
@@ -18,7 +19,6 @@ import sys
 import time
 
 from ..circuits import instances
-from ..curves import native
 from ..groth16 import verifier
 from ..groth16.prover import Prover
 from ..utils import kernels as kn
@@ -41,13 +41,11 @@ def main(argv=None):
     library = "none on the CPU"
     if dev.type == "cuda":
         library = kn.build()
-        kn.LIB.get()
-    tokenizer = kn.host_library("keyparse.cpp")
-    limbs = kn.host_library("wirelimbs.cpp", kn.PY_HOST_FLAGS)
-    group = native.lib()._name
+        kn.kernel_lib()
+    host = ", ".join(f"{src} {kn.host_lib(src)._name}"
+                     for src in kn.HOST_LIBS)
     t_build = time.perf_counter() - t0
-    cm.say(f"kernels {library}, tokenizer {tokenizer}, witness limbs "
-           f"{limbs}, group law {group}: {t_build:.1f}s")
+    cm.say(f"kernels {library}, {host}: {t_build:.1f}s")
     summary = {"metric": "prewarm", "device": str(dev),
                "build_s": t_build, "circuits": []}
     kn.reset_counts()

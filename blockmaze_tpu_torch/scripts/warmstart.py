@@ -4,8 +4,8 @@ Laps, each with its seconds, for one circuit in a fresh process:
 
   backend init    import torch, the device check, torch.cuda.init and a
                   first allocation
-  kernel library  kernels.LIB.get(): "build" when _build/ holds no library
-                  of the current sources (nvcc), else "load"
+  kernel library  kernels.kernel_lib(): "build" when _build/ holds no
+                  library of the current sources (nvcc), else "load"
   pk load         the text key or its npz (--key-dir), or the seeded
                   cache (keygen on a miss)
   Prover init     key upload, QAP tables
@@ -59,7 +59,7 @@ def main(argv=None):
     library = "none (plain versions on the CPU)"
     if dev.type == "cuda":
         library = "load" if os.path.exists(kn.library_path()) else "build"
-        kn.LIB.get()
+        kn.kernel_lib()
     lap("kernel library", f" ({library})")
 
     keys = cm.resolve_keys(args.circuit, dev, args.key_dir)

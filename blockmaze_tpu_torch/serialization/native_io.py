@@ -5,10 +5,10 @@ proving keys as libsnark decimal text (85 MB for mint, 253 MB for
 deposit), every point compressed to x and the parity of y. The JAX
 package's native parser (C++ over GMP) decompressed every point on the
 host; here the C++ tokenizer (csrc/keyparse.cpp, built at first use with
-g++ into _build/, no GMP) turns the decimal tokens into limbs and nothing
-more, and keys.load_text_pk decompresses the points on the device
-(curves/decompress.py). A failed build or parse raises: there is no
-fallback to the Python reader.
+g++ into _build/ and bound by utils/kernels.host_lib, no GMP) turns the
+decimal tokens into limbs and nothing more, and keys.load_text_pk
+decompresses the points on the device (curves/decompress.py). A failed
+build or parse raises: there is no fallback to the Python reader.
 """
 
 from __future__ import annotations
@@ -23,23 +23,6 @@ from ..utils import kernels as kn
 from . import libsnark_io as io
 
 _P = C.c_void_p
-_lib = None
-
-
-def _load():
-    global _lib
-    if _lib is None:
-        lib = C.CDLL(kn.host_library("keyparse.cpp"))
-        lib.bm_keytext_parse.restype = _P
-        lib.bm_keytext_parse.argtypes = [C.c_char_p,
-                                         C.POINTER(C.c_longlong),
-                                         C.c_char_p, C.c_int]
-        lib.bm_keytext_fill.restype = None
-        lib.bm_keytext_fill.argtypes = [_P] * 17
-        lib.bm_keytext_free.restype = None
-        lib.bm_keytext_free.argtypes = [_P]
-        _lib = lib
-    return _lib
 
 
 @dataclasses.dataclass
@@ -92,7 +75,7 @@ def parse_pk_text(path: str) -> TextKey:
     """Tokenize the proving key at `path` (libsnark_io.load_proving_key's
     layout). Raises ValueError on a malformed or truncated file (with the
     byte offset), and on a group constant off its curve."""
-    lib = _load()
+    lib = kn.host_lib("keyparse.cpp")
     meta = (C.c_longlong * 10)()
     err = C.create_string_buffer(512)
     handle = lib.bm_keytext_parse(path.encode(), meta, err, len(err))

@@ -17,17 +17,25 @@ Each kernel has a `Kernel` object whose `launches` count goes up by one
 each time its wrapper launches it, so a run can show which kernels it went
 through.
 
-Host code in csrc/*.cpp (the key-text tokenizer, keyparse.cpp; the
-prover's witness limbs, wirelimbs.cpp, which also takes the
-interpreter's include directory) builds the same way at first use, with
-g++, the host compiler nvcc itself calls, into its own library in
-_build/ (host_library); the CPU tests build and run the very same files.
+Host code in csrc/*.cpp builds the same way at first use, with g++, the
+host compiler nvcc itself calls, into its own library in _build/
+(host_library); the CPU tests build and run the very same files. HOST_LIBS
+is the one table of them: per source its extra g++ flags, whether it is
+loaded with the interpreter lock held through each call (ctypes.PyDLL) or
+released (ctypes.CDLL), and its entry points' argtypes and restypes;
+host_lib(source) builds and binds it once a process:
+
+    keyparse.cpp    the key-text tokenizer (serialization/native_io.py)
+    wirelimbs.cpp   the prover's witness limbs; reads Python objects, so
+                    it takes the interpreter's headers and holds the lock
+    hostcurve.cpp   the proof's host group law (curves/native.py), -O3
 """
 
 from __future__ import annotations
 
 import ctypes
 import fcntl
+import functools
 import hashlib
 import os
 import shutil
@@ -35,6 +43,7 @@ import subprocess
 import sysconfig
 import tempfile
 import time
+from typing import NamedTuple
 
 import torch
 
@@ -44,9 +53,6 @@ BUILD = os.path.join(PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 HOST_FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC"]
-# host files that read Python objects (wirelimbs.cpp) add the interpreter's
-# headers
-PY_HOST_FLAGS = ["-I" + sysconfig.get_paths()["include"]]
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
@@ -55,7 +61,8 @@ _I = ctypes.c_int
 # Curve codes of the C entry points.
 CURVE_ID = {"g1": 1, "g2": 2}
 
-# C entry points and their argument types (csrc/*.cu).
+# C entry points and their argument types (csrc/*.cu); each returns
+# cudaGetLastError() as an int.
 SIGNATURES = {
     "bm_fft_pass": [_P] * 4 + [_I] * 7 + [_P] * 4,
     "bm_butterfly_stage": [_P, _P, _P, _LL, _LL, _P],
@@ -77,6 +84,46 @@ SIGNATURES = {
     "bm_fixed_base_exp": [_I] + [_P] * 8 + [_LL, _P],
     "bm_decompress": [_I] + [_P] * 7 + [_LL, _P],
 }
+
+
+class HostLib(NamedTuple):
+    """One host source of csrc/: its g++ flags after HOST_FLAGS, whether
+    its calls hold the interpreter lock (it reads Python objects), and
+    {entry point: (argtypes, restype)}."""
+    flags: tuple
+    holds_lock: bool
+    entries: dict
+
+
+HOST_LIBS = {
+    "keyparse.cpp": HostLib((), False, {
+        "bm_keytext_parse": ([ctypes.c_char_p, ctypes.POINTER(_LL),
+                              ctypes.c_char_p, _I], _P),
+        "bm_keytext_fill": ([_P] * 17, None),
+        "bm_keytext_free": ([_P], None)}),
+    "wirelimbs.cpp": HostLib(
+        ("-I" + sysconfig.get_paths()["include"],), True, {
+            "bm_wire_limbs": ([ctypes.py_object, ctypes.py_object, _P, _LL,
+                               _P], _LL)}),
+    "hostcurve.cpp": HostLib(("-O3",), False, {
+        "bm_hc_mul": ([_I, _P, _P, _P], _I),
+        "bm_hc_add": ([_I, _P, _P, _P], _I),
+        "bm_hc_msub": ([_I, _P, _P, _P, _P], _I),
+        "bm_hc_unblind": ([_I] + [_P] * 6, _I),
+        "bm_hc_combine": ([_P] * 4, _I),
+        "bm_hc_muls": ([], _LL)}),
+}
+
+
+def _bind(dll, entries: dict):
+    """dll with every entry point's argtypes and restype set (entries:
+    {name: (argtypes, restype)}); ctypes keeps each bound function on dll,
+    so a call looks nothing up again."""
+    for name, (argtypes, restype) in entries.items():
+        fn = getattr(dll, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return dll
 
 
 class BuildError(RuntimeError):
@@ -149,6 +196,15 @@ def host_library(source: str, flags=()) -> str:
     return _locked_build(lib, make)
 
 
+@functools.cache
+def host_lib(source: str):
+    """HOST_LIBS[source] built (host_library) and loaded with its entry
+    points bound, once a process."""
+    spec = HOST_LIBS[source]
+    load = ctypes.PyDLL if spec.holds_lock else ctypes.CDLL
+    return _bind(load(host_library(source, spec.flags)), spec.entries)
+
+
 def library_path() -> str:
     """Where build() puts the kernel library of the current sources (it
     exists once they have been built)."""
@@ -206,22 +262,13 @@ def _compile(srcs, lib: str, verbose: bool):
         os.replace(out_tmp, lib)
 
 
-class _Lib:
-    def __init__(self):
-        self._lib = None
-
-    def get(self):
-        if self._lib is None:
-            lib = ctypes.CDLL(build())
-            for name, argtypes in SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            self._lib = lib
-        return self._lib
-
-
-LIB = _Lib()
+@functools.cache
+def kernel_lib():
+    """The kernel library (build()) loaded, every entry point of
+    SIGNATURES bound, once a process."""
+    return _bind(ctypes.CDLL(build()), {name: (argtypes, _I)
+                                        for name, argtypes in
+                                        SIGNATURES.items()})
 
 
 class Kernel:
@@ -239,7 +286,7 @@ class Kernel:
         current stream, with that card current (an entry point's attribute
         calls apply to the current device); tensor arguments pass as their
         device pointers."""
-        fn = getattr(LIB.get(), self.entry)
+        fn = getattr(kernel_lib(), self.entry)
         dev = next(a.device for a in args if isinstance(a, torch.Tensor))
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream

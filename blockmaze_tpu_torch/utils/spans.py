@@ -8,8 +8,10 @@ block: its name, start and end in time.perf_counter_ns() (the host clock
 portbench's traced window puts the card's operations on), its id, its
 parent's id (0 for none) and the id of its request's root, the outermost
 span open when it started (its own id for a root). Spans nest per thread
-and are kept in memory, per process, until drain() takes them out: work
-in another process (prove_batch's host workers) records nothing here.
+and are kept in memory, per process, until drain() takes them out.
+carry(fn) hands the spans open on the calling thread to a call of fn on
+another thread: prove_batch's combines, on the Prover's combine thread,
+nest under the batch's prover.prove_batch and share its root.
 
 Off, span() returns one shared no-op context manager (NOOP) and records
 nothing. A dict put in the `info` of what span() returns is the recorded
@@ -39,9 +41,11 @@ The spans the port opens, by layer (`layer.stage`):
   {"wires": n, "wide": k}: the witness's n rows and the k of them that
   left the native pass for Python's), prover.upload, prover.blinds
   (prove's two make_blind), prover.fetch, prover.unblind, prover.group
-  and prover.submit (groth16/prover.py); prover.blinds (in prove and
-  prove_batch), prover.unblind and prover.group carry {"muls": n}, the
-  scalar products of curves/native.py they made (2, 5, 6 a proof);
+  and prover.submit (groth16/prover.py; in prove_batch prover.unblind and
+  prover.group run on the combine thread, children of
+  prover.prove_batch); prover.blinds (in prove and prove_batch),
+  prover.unblind and prover.group carry {"muls": n}, the scalar products
+  of curves/native.py they made (2, 5, 6 a proof);
 - msm: msm.query, one MSM on one card (msm/pippenger.py msm, which the
   Prover calls five times a proof), its info {"curve", "points", "c",
   "windows": W, "live": the stream's items, "lanes": T, "per_lane": L}
@@ -172,6 +176,23 @@ def traced(name: str):
                 return fn(*args, **kwargs)
         return call
     return wrap
+
+
+def carry(fn):
+    """fn, to be called on another thread, with the spans open on this
+    thread now pushed on that thread's stack for the call: what it records
+    has the innermost of them as parent and their root as root."""
+    ids = tuple(_stack())
+
+    def call(*args, **kwargs):
+        stack = _stack()
+        n = len(stack)
+        stack.extend(ids)
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            del stack[n:]
+    return call
 
 
 def _on_gc(phase: str, info: dict):

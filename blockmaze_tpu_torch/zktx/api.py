@@ -131,7 +131,7 @@ class ZkTx:
         for name in names or self.circuits:
             self.circuits[name].prover
         if torch.device(self.device).type == "cuda":
-            kn.LIB.get()
+            kn.kernel_lib()
 
     def _prove(self, name: str, primary, aux) -> tuple:
         """The circuit's proof of the synthesised witness: (proof hex, the

@@ -9,7 +9,7 @@ on four.
 
 Phases, each timed; any failure raises and the script exits nonzero:
   0. build the CUDA kernels from blockmaze_tpu_torch/csrc (nvcc, sm_90a)
-     and the host tokenizer csrc/keyparse.cpp (g++);
+     and every host library of utils/kernels.HOST_LIBS (g++);
   1. every kernel against its plain torch version on the same CUDA tensors,
      bit-exact, with kernel and plain times and each kernel's bound, at the
      shapes the main path gives it: fft at mint's 2^17 and 2^16 and send's
@@ -113,8 +113,7 @@ Phases, each timed; any failure raises and the script exits nonzero:
      mint Prover's prove_batch of the parent's BATCH_RS witnesses
      (scripts.batch.batch_instance), each proof equal to the parent's
      single-card proof at its (r, s) and verified, the launches against
-     process_mesh_path(k), and the host's processes while every rank's
-     combine pool is up. A rank that exits nonzero or overruns
+     process_mesh_path(k). A rank that exits nonzero or overruns
      RANK_TIMEOUT fails the script. A `process mesh summary:` line holds
      phase 8's numbers;
   9. the reference's text keys (TEXT_KEY_CIRCUITS: mint and deposit at
@@ -467,11 +466,11 @@ def main():
     # ---- phase 0: build --------------------------------------------------
     t0 = time.perf_counter()
     lib = kn.build(verbose=True)
-    kn.LIB.get()
+    kn.kernel_lib()
     t1 = time.perf_counter()
-    host_lib = kn.host_library("keyparse.cpp")
+    host = [kn.host_lib(src)._name for src in kn.HOST_LIBS]
     log(f"phase 0 build: {time.perf_counter() - t0:.1f}s ({lib}; the host "
-        f"tokenizer {time.perf_counter() - t1:.1f}s, {host_lib})")
+        f"libraries {time.perf_counter() - t1:.1f}s, {host})")
 
     if mesh_only:
         # the mesh's inputs alone: the single-card runs it is held against
@@ -1923,7 +1922,7 @@ def phase6(name: str, dev):
     proofs = prover.prove_batch(insts, rs=rs, ss=ss)
     torch.cuda.synchronize()
     path_counts.append(kn.counts())
-    log(f"  first prove_batch (B=4; starts the worker processes): "
+    log(f"  first prove_batch (B=4; starts the combine thread): "
         f"{time.perf_counter() - t0:.3f}s")
     check_prove_counts(kind, path_counts[-1], 4)
     for i, proof in enumerate(proofs):
@@ -2340,8 +2339,8 @@ def mesh_batch(prover, summary):
         if not verifier.verify(vk, primary, proof):
             raise AssertionError("mint mesh batch proof rejected")
     prover.close()
-    log(f"  mint prove_batch B=2 on the mesh: {dt:.3f}s (starts the worker "
-        f"processes); both verified")
+    log(f"  mint prove_batch B=2 on the mesh: {dt:.3f}s (starts the "
+        f"combine thread); both verified")
     summary["mint_batch_B2_s"] = round(dt, 3)
     return [counts]
 
@@ -2504,15 +2503,10 @@ def phase8(summary7):
             f"; Prover memory single {json.dumps(single[6])}, a rank "
             f"{json.dumps(outs[0][name]['mem'])}")
     batches = [o[BATCH_CIRCUIT]["batch"] for o in outs]
-    summary["batch"] = {"B": len(BATCH_RS), "s": [b["s"] for b in batches],
-                        "host_processes": len(outs) + sum(
-                            b["workers"] for b in batches),
-                        "workers": [b["workers"] for b in batches]}
+    summary["batch"] = {"B": len(BATCH_RS), "s": [b["s"] for b in batches]}
     log(f"  {BATCH_CIRCUIT} prove_batch of {len(BATCH_RS)} on every rank: "
         f"each proof equal to the single-card proof at its (r, s); "
-        f"seconds {summary['batch']['s']}; host processes during the batch "
-        f"{summary['batch']['host_processes']} ({len(outs)} ranks and their "
-        f"{summary['batch']['workers']} combine workers)")
+        f"seconds {summary['batch']['s']}")
     log(f"  process mesh summary: {json.dumps(summary)}")
     return ([o[name]["launches"] for o in outs for name in MESH_CIRCUITS]
             + [b["launches"] for b in batches])
@@ -2695,9 +2689,7 @@ def rank_batch(prover, vk, mesh, work):
     """prove_batch on the process-mesh Prover of the parent's batch
     witnesses at BATCH_RS: each proof equal to the parent's single-card
     proof at its (r, s) and verified, the launches per proof against
-    process_mesh_path; this rank's worker processes (prove_batch's host
-    combine pool) counted while every rank's pool is up."""
-    import multiprocessing
+    process_mesh_path."""
     import torch.distributed as dist
     from blockmaze_tpu_torch.groth16 import verifier
     from blockmaze_tpu_torch.utils import kernels as kn
@@ -2711,8 +2703,6 @@ def rank_batch(prover, vk, mesh, work):
     dt = time.perf_counter() - t0
     torch.cuda.synchronize(mesh.local)
     counts = kn.counts()
-    workers = len(multiprocessing.active_children())
-    dist.barrier()      # every rank's pool is up until here
     prover.close()
     check_prove_counts(domain_kind(prover.domain), counts, len(insts),
                        process_mesh_path(mesh.size))
@@ -2723,10 +2713,9 @@ def rank_batch(prover, vk, mesh, work):
         if not verifier.verify(vk, insts[i][0], proof):
             raise AssertionError(f"process mesh batch proof {i} rejected")
     rank_log(mesh.rank, f"prove_batch of {len(insts)} {BATCH_CIRCUIT} "
-             f"witnesses at {BATCH_RS[:len(insts)]}: {dt:.3f}s (starts the "
-             f"worker processes), each equal to the single-card proof and "
-             f"verified; {workers} worker processes on this rank")
-    return {"s": round(dt, 3), "workers": workers, "launches": counts}
+             f"witnesses at {BATCH_RS[:len(insts)]}: {dt:.3f}s, each equal "
+             f"to the single-card proof and verified")
+    return {"s": round(dt, 3), "launches": counts}
 
 
 def process_mesh_rank(work, device):
@@ -2740,7 +2729,7 @@ def process_mesh_rank(work, device):
     if not distributed.initialize(device=device):
         raise RuntimeError("process mesh rank: no group to join")
     mesh = distributed.global_mesh()
-    kn.LIB.get()
+    kn.kernel_lib()
     rank_log(mesh.rank, f"{mesh!r}, backend {mesh.backend}, this rank on "
              f"{mesh.local} ({torch.cuda.get_device_name(mesh.local)}); "
              f"joined in {time.perf_counter() - t0:.1f}s")

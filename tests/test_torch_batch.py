@@ -8,6 +8,7 @@ by field."""
 
 import dataclasses
 import os
+import threading
 
 import numpy as np
 import pytest
@@ -34,6 +35,11 @@ def fields(proof):
     return proof.a, proof.b, proof.c
 
 
+def combine_threads():
+    return [t for t in threading.enumerate()
+            if t.name.startswith("prover-combine") and t.is_alive()]
+
+
 @pytest.fixture(scope="module")
 def instances(jax_reference):
     pb = jax_reference[0]
@@ -46,7 +52,9 @@ def instances(jax_reference):
 def test_prove_batch_matches_jax_and_prove(jax_reference, instances):
     """The port's batch equals the JAX package's batch at the same (rs,
     ss), its first proof equals the port's single prove at (7, 9), and
-    both verifiers accept each proof for its own instance only."""
+    both verifiers accept each proof for its own instance only. close()
+    leaves no combine thread alive, and a batch after it starts one again
+    and still equals prove."""
     _, pk, vk, jdpk, _ = jax_reference
     want = JaxProver(jdpk, lanes=8, window=8).prove_batch(instances, rs=RS,
                                                           ss=SS)
@@ -55,10 +63,17 @@ def test_prove_batch_matches_jax_and_prove(jax_reference, instances):
         got = prover.prove_batch(instances, rs=RS, ss=SS)
     finally:
         prover.close()
-    assert prover._pool is None
+    assert prover._pool is None and not combine_threads()
     assert [fields(p) for p in got] == [fields(p) for p in want]
     single = prover.prove(*instances[0], r=RS[0], s=SS[0])
     assert fields(got[0]) == fields(single)
+    try:
+        again = prover.prove_batch(instances[:1], rs=RS[:1], ss=SS[:1])
+        assert len(combine_threads()) == 1
+    finally:
+        prover.close()
+    assert not combine_threads()
+    assert [fields(p) for p in again] == [fields(single)]
     for verify in (jverifier.verify, verifier.verify):
         for i, proof in enumerate(got):
             assert verify(vk, instances[i][0], proof)

@@ -8,9 +8,11 @@ r1cs/examples.py chain circuits, written with the port's
 write_proving_key; every DevicePK field must equal the JAX package's
 build_device_pk(io.load_proving_key(path)) exactly."""
 
+import ctypes
 import dataclasses
 import os
 import random
+import re
 
 import numpy as np
 import pytest
@@ -293,3 +295,26 @@ def test_host_build_failure_raises(tmp_path, monkeypatch):
     monkeypatch.setattr(kn.shutil, "which", lambda name: None)
     with pytest.raises(kn.BuildError, match="g\\+\\+ not found"):
         kn.host_library("keyparse.cpp")
+
+
+@pytest.mark.parametrize("source", sorted(kn.HOST_LIBS))
+def test_host_library_table_entry_builds_and_binds(source):
+    """Each entry of kernels.HOST_LIBS builds on the CPU with its flags,
+    loads holding the interpreter lock through its calls or not as the
+    entry says, and binds every entry point its source defines with the
+    declared argtypes and restype; host_lib hands out one library a
+    process."""
+    spec = kn.HOST_LIBS[source]
+    lib = kn.host_lib(source)
+    assert lib is kn.host_lib(source)
+    assert lib._name == kn.host_library(source, spec.flags)
+    assert bool(lib._func_flags_ & ctypes._FUNCFLAG_PYTHONAPI) \
+        == spec.holds_lock
+    with open(os.path.join(kn.CSRC, source)) as f:
+        defined = re.findall(r"^[A-Za-z][^(;]*\b(bm_\w+)\(", f.read(),
+                             re.M)
+    assert sorted(defined) == sorted(spec.entries)
+    for name, (argtypes, restype) in spec.entries.items():
+        fn = getattr(lib, name)
+        assert tuple(fn.argtypes) == tuple(argtypes), name
+        assert fn.restype is restype, name

@@ -11,6 +11,8 @@ tests/test_torch_batch.py hold the proofs)."""
 import gc
 import json
 import os
+import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -135,6 +137,45 @@ def test_timed_syncs_inside_its_span_unless_the_block_raises(recorder):
     assert failed.root == failed.id
 
 
+def test_carry_nests_other_threads_under_the_callers_spans(recorder):
+    """spans.carry: calls on more threads than cores, the interpreter
+    switching threads often, record under the span open where the function
+    was carried and in its request; no id is given twice, and each thread's
+    stack holds the carried ids during its call alone."""
+    def work(_):
+        with spans.span("inner"):
+            with spans.span("leaf"):
+                pass
+        return list(spans._stack())
+
+    def call(k):
+        return carried(k), list(spans._stack())
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with spans.span("req"):
+            with spans.span("batch"):
+                carried = spans.carry(work)
+                with ThreadPoolExecutor((os.cpu_count() or 1) + 1) as pool:
+                    stacks = list(pool.map(call, range(400), timeout=60))
+    finally:
+        sys.setswitchinterval(interval)
+    spans.disable()
+    recorded = [s for s in spans.drain() if s.name != "host.gc"]
+    got = by_name(recorded)
+    (req,), (batch,) = got["req"], got["batch"]
+    assert stacks == [([req.id, batch.id], [])] * 400
+    assert spans._stack() == []
+    assert len({s.id for s in recorded}) == len(recorded) == 802
+    assert all(s.parent == batch.id and s.root == req.id and inside(s, batch)
+               for s in got["inner"])
+    inner = {s.id: s for s in got["inner"]}
+    assert sorted(s.parent for s in got["leaf"]) == sorted(inner)
+    assert all(s.root == req.id and inside(s, inner[s.parent])
+               for s in got["leaf"])
+
+
 # -- the Prover's spans ----------------------------------------------------
 
 PROVE_TREE = {
@@ -154,6 +195,8 @@ BATCH_TREE = {
     "prover.upload": ("prover.dispatch", 2),
     "prover.fetch": ("prover.dispatch", 2),
     "prover.submit": ("prover.dispatch", 2),
+    "prover.unblind": ("prover.prove_batch", 2),
+    "prover.group": ("prover.prove_batch", 2),
     "msm.query": ("prover.dispatch", 10)}
 
 
@@ -236,8 +279,9 @@ def test_prove_batch_span_tree(prover_runs):
         assert timings[lap] == (span.end - span.start) / 1e9
     assert timings["limbs"] == pytest.approx(sum(
         (s.end - s.start) / 1e9 for s in names["prover.limbs"]))
-    # the combines run in the host workers: their spans are not here
-    assert "prover.unblind" not in names and "prover.group" not in names
+    # the combines run on the combine thread, under the batch's root
+    for name, muls in (("prover.unblind", 5), ("prover.group", 6)):
+        assert [s.info for s in names[name]] == [{"muls": muls}] * 2
 
 
 def test_timings_keep_their_keys_with_the_recorder_off(prover_runs):
