@@ -57,7 +57,10 @@ The spans the port opens, by layer (`layer.stage`):
   MSM's stream (msm/pippenger.py sort_live);
 - zktx: zktx.prove and zktx.verify (request roots) around every
   gen_*_proof and verify_*_proof, and inside a proof call zktx.notes,
-  zktx.witness and zktx.encode (zktx/api.py);
+  zktx.witness and zktx.encode (zktx/api.py); zktx.witness carries
+  {"gc_held": 1} when zktx/api.py's hold_gc switched the collector off
+  for zktx.notes and zktx.witness, {"gc_held": 0} when it was off
+  already;
 - host.gc: the hook above.
 """
 

@@ -14,7 +14,10 @@ of the little-endian memory bytes).
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import os
+import threading
 from typing import List, Optional
 
 import torch
@@ -66,6 +69,47 @@ def gen_rt(cmts: List[bytes], depth: int = MK.DEPTH) -> bytes:
 
 
 # ---------------------------------------------------------------------------
+# The collector's hold around synthesis
+# ---------------------------------------------------------------------------
+
+_gc_lock = threading.Lock()
+_gc_holds = 0           # holds open, in every thread
+_gc_switched = False    # the first open hold switched the collector off
+
+
+@contextlib.contextmanager
+def hold_gc():
+    """The interpreter's cyclic garbage collector off for the block, process
+    wide. A circuit's synthesis makes no reference cycle (everything it
+    allocates is freed by reference counting when the call ends), so each
+    collection a synthesis triggers walks the whole heap and frees nothing.
+
+    Holds nest and overlap across threads: the first to open switches the
+    collector off if it is on, the last to close switches it on again if
+    the first switched it off. Nothing is collected at the close. Yields 1
+    when the holds switched the collector off, 0 when it was off before
+    them (the zktx.witness span's info gc_held).
+
+    The block drops what it made before it closes: objects made under the
+    hold and still alive count toward the youngest generation, and the
+    first collection after the hold would walk every one of them."""
+    global _gc_holds, _gc_switched
+    with _gc_lock:
+        if _gc_holds == 0:
+            _gc_switched = gc.isenabled()
+            gc.disable()
+        _gc_holds += 1
+        held = int(_gc_switched)
+    try:
+        yield held
+    finally:
+        with _gc_lock:
+            _gc_holds -= 1
+            if _gc_holds == 0 and _gc_switched:
+                gc.enable()
+
+
+# ---------------------------------------------------------------------------
 # Circuit registry: lazy provers per circuit
 # ---------------------------------------------------------------------------
 
@@ -110,7 +154,9 @@ class ZkTx:
     it zktx.notes (the PRFs, notes, commitments and, for deposit, the
     Merkle path), zktx.witness (the protoboard, the gadget's witness and
     its primary and auxiliary inputs), the prover's prover.prove and
-    zktx.encode (the proof's hex); each Verify*Proof call is zktx.verify."""
+    zktx.encode (the proof's hex); each Verify*Proof call is zktx.verify.
+    zktx.notes and zktx.witness run under hold_gc(), the collector off;
+    the proof, its encoding and every verification do not."""
 
     def __init__(self, key_dir: Optional[str] = None,
                  merkle_depth: Optional[int] = None, device="cuda"):
@@ -147,18 +193,21 @@ class ZkTx:
                        sn_old: Optional[bytes] = None) -> tuple:
         # the reference ABI passes sn_old explicitly (zktx.go GenMintProof):
         # genesis notes carry InitializeSN's sn, not PRF(this sk, r_old)
-        with spans.span("zktx.notes"):
-            if sn_old is None:
-                sn_old = compute_prf(sk, r_old)
-            note_old = NT.Note(value_old, sn_old, r_old)
-            sn = compute_prf(sk, r)
-            note = NT.Note(value, sn, r)
-            cm_old, cm = note_old.cm(), note.cm()
-        with spans.span("zktx.witness"):
-            pb = Protoboard()
-            g = MintGadget(pb)
-            g.generate_witness(note_old, note, cm_old, cm, value_s, sk)
-            primary, aux = pb.primary_input(), pb.auxiliary_input()
+        with hold_gc() as held:
+            with spans.span("zktx.notes"):
+                if sn_old is None:
+                    sn_old = compute_prf(sk, r_old)
+                note_old = NT.Note(value_old, sn_old, r_old)
+                sn = compute_prf(sk, r)
+                note = NT.Note(value, sn, r)
+                cm_old, cm = note_old.cm(), note.cm()
+            with spans.span("zktx.witness") as witness:
+                witness.info = {"gc_held": held}
+                pb = Protoboard()
+                g = MintGadget(pb)
+                g.generate_witness(note_old, note, cm_old, cm, value_s, sk)
+                primary, aux = pb.primary_input(), pb.auxiliary_input()
+                del pb, g
         return self._prove("mint", primary, aux)
 
     @staticmethod
@@ -180,19 +229,22 @@ class ZkTx:
                        sk: bytes, r_old: bytes, r: bytes,
                        pk_sender: bytes, pk_recv: bytes,
                        sn_old: Optional[bytes] = None) -> tuple:
-        with spans.span("zktx.notes"):
-            if sn_old is None:
-                sn_old = compute_prf(sk, r_old)
-            note_old = NT.Note(value_old, sn_old, r_old)
-            note = NT.Note(value, compute_prf(sk, r), r)
-            r_s = compute_crh(pk_sender, r)
-            note_s = NT.NoteS(value_s, pk_recv, r_s, sn_old)
-            cms = note_old.cm(), note_s.cm(), note.cm()
-        with spans.span("zktx.witness"):
-            pb = Protoboard()
-            g = SendGadget(pb)
-            g.generate_witness(note_old, note_s, note, *cms, sk, pk_sender)
-            primary, aux = pb.primary_input(), pb.auxiliary_input()
+        with hold_gc() as held:
+            with spans.span("zktx.notes"):
+                if sn_old is None:
+                    sn_old = compute_prf(sk, r_old)
+                note_old = NT.Note(value_old, sn_old, r_old)
+                note = NT.Note(value, compute_prf(sk, r), r)
+                r_s = compute_crh(pk_sender, r)
+                note_s = NT.NoteS(value_s, pk_recv, r_s, sn_old)
+                cms = note_old.cm(), note_s.cm(), note.cm()
+            with spans.span("zktx.witness") as witness:
+                witness.info = {"gc_held": held}
+                pb = Protoboard()
+                g = SendGadget(pb)
+                g.generate_witness(note_old, note_s, note, *cms, sk, pk_sender)
+                primary, aux = pb.primary_input(), pb.auxiliary_input()
+                del pb, g
         return self._prove("send", primary, aux)
 
     @spans.traced("zktx.verify")
@@ -207,17 +259,20 @@ class ZkTx:
     def gen_redeem_proof(self, value_old: int, value: int, value_s: int,
                          sk: bytes, r_old: bytes, r: bytes,
                          sn_old: Optional[bytes] = None) -> tuple:
-        with spans.span("zktx.notes"):
-            if sn_old is None:
-                sn_old = compute_prf(sk, r_old)
-            note_old = NT.Note(value_old, sn_old, r_old)
-            note = NT.Note(value, compute_prf(sk, r), r)
-            cm_old, cm = note_old.cm(), note.cm()
-        with spans.span("zktx.witness"):
-            pb = Protoboard()
-            g = RedeemGadget(pb)
-            g.generate_witness(note_old, note, cm_old, cm, value_s, sk)
-            primary, aux = pb.primary_input(), pb.auxiliary_input()
+        with hold_gc() as held:
+            with spans.span("zktx.notes"):
+                if sn_old is None:
+                    sn_old = compute_prf(sk, r_old)
+                note_old = NT.Note(value_old, sn_old, r_old)
+                note = NT.Note(value, compute_prf(sk, r), r)
+                cm_old, cm = note_old.cm(), note.cm()
+            with spans.span("zktx.witness") as witness:
+                witness.info = {"gc_held": held}
+                pb = Protoboard()
+                g = RedeemGadget(pb)
+                g.generate_witness(note_old, note, cm_old, cm, value_s, sk)
+                primary, aux = pb.primary_input(), pb.auxiliary_input()
+                del pb, g
         return self._prove("redeem", primary, aux)
 
     @spans.traced("zktx.verify")
@@ -236,36 +291,40 @@ class ZkTx:
                           sn_old: Optional[bytes] = None) -> tuple:
         """Rebuilds the tree from the cmt list (genDepositproof semantics:
         depositcgo.cpp builds the tree, takes witness(cmtS).path())."""
-        with spans.span("zktx.notes"):
-            if sn_old is None:
-                sn_old = compute_prf(sk, r_old)
-            note_old = NT.Note(value_old, sn_old, r_old)
-            note = NT.Note(value, compute_prf(sk, r), r)
-            note_s = NT.NoteS(value_s, pk_recv, r_s, sn_A_old)
-            sn_s = compute_prf(sk, r_s)
-            cmtS = note_s.cm()
-            cm_old, cm = note_old.cm(), note.cm()
+        with hold_gc() as held:
+            with spans.span("zktx.notes"):
+                if sn_old is None:
+                    sn_old = compute_prf(sk, r_old)
+                note_old = NT.Note(value_old, sn_old, r_old)
+                note = NT.Note(value, compute_prf(sk, r), r)
+                note_s = NT.NoteS(value_s, pk_recv, r_s, sn_A_old)
+                sn_s = compute_prf(sk, r_s)
+                cmtS = note_s.cm()
+                cm_old, cm = note_old.cm(), note.cm()
 
-            tree = MK.IncrementalMerkleTree(self.merkle_depth)
-            wit = None
-            for cmt in cmts_for_merkle:
-                if wit is not None:
-                    wit.append(cmt)
-                else:
-                    tree.append(cmt)
-                if cmt == cmtS and wit is None:
-                    wit = tree.witness()
-            if wit is None:
-                raise ValueError("cmtS not found in merkle commitment list")
-            rt = wit.root()
-            path = wit.path()
+                tree = MK.IncrementalMerkleTree(self.merkle_depth)
+                wit = None
+                for cmt in cmts_for_merkle:
+                    if wit is not None:
+                        wit.append(cmt)
+                    else:
+                        tree.append(cmt)
+                    if cmt == cmtS and wit is None:
+                        wit = tree.witness()
+                if wit is None:
+                    raise ValueError(
+                        "cmtS not found in merkle commitment list")
+                rt = wit.root()
+                path = wit.path()
 
-        with spans.span("zktx.witness"):
-            pb = Protoboard()
-            g = DepositGadget(pb, depth=self.merkle_depth)
-            g.generate_witness(note_s, note_old, note, cmtS, cm_old, cm, rt,
-                               path, sn_s, sk)
-            primary, aux = pb.primary_input(), pb.auxiliary_input()
+            with spans.span("zktx.witness") as witness:
+                witness.info = {"gc_held": held}
+                pb = Protoboard()
+                g = DepositGadget(pb, depth=self.merkle_depth)
+                g.generate_witness(note_s, note_old, note, cmtS, cm_old, cm,
+                                   rt, path, sn_s, sk)
+                primary, aux = pb.primary_input(), pb.auxiliary_input()
+                del pb, g
         return self._prove("deposit", primary, aux)
 
     @spans.traced("zktx.verify")

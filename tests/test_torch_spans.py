@@ -368,6 +368,7 @@ def test_zktx_span_tree(name, tmp_path, monkeypatch, recorder):
     ctx = svc.circuits[name]
     ctx._prover, ctx._vk = Recorder(), "vk"
     monkeypatch.setattr(api, "gver", Recorder())
+    assert gc.isenabled()
     proof_hex, primary = getattr(svc, f"gen_{name}_proof")(*gen_args)
     assert getattr(svc, f"verify_{name}_proof")(proof_hex, *ver_args)
     spans.disable()
@@ -380,6 +381,9 @@ def test_zktx_span_tree(name, tmp_path, monkeypatch, recorder):
         assert s.parent == prove.id and inside(s, prove)
     assert names["zktx.notes"][0].end <= names["zktx.witness"][0].start
     assert names["zktx.witness"][0].end <= names["zktx.encode"][0].start
+    assert names["zktx.witness"][0].info == {"gc_held": 1}
+    assert all(names[s][0].info is None
+               for s in ("zktx.prove", "zktx.notes", "zktx.encode"))
     assert len(recorded) == 5
     assert ctx._prover.calls[0][0] == primary
 
