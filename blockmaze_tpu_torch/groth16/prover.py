@@ -2,8 +2,10 @@
 device, unblinding and the final combine on the host.
 
 Port of blockmaze_tpu/groth16/prover.py (`Prover.__init__`, `prove` and
-`prove_batch`; r1cs_gg_ppzksnark.tcc:391-506). The witness goes to the device in
-standard form (the MSM scalars) and takes its Montgomery form there (one
+`prove_batch`; r1cs_gg_ppzksnark.tcc:391-506). The witness goes to the
+device as one 64-bit word a wire from a pinned host buffer (its few wires
+of 2^64 and above apart, as limb rows), is widened there to standard form
+(wire_widen: the MSM scalars) and takes its Montgomery form there (one
 mul_elementwise by R^2); the QAP returns H in standard form:
 
   H       = qap_witness_map(cs, primary, aux)                 [NTT pipeline]
@@ -95,8 +97,9 @@ class Prover:
     timings holds the seconds of the last call's laps, each the span
     prover.<lap> of utils/spans.py, timed whether or not the span recorder
     is on and ended by a synchronise of the device: after prove, wires
-    (the draws, prover.limbs: the witness to limbs, _wire_limbs' native
-    pass; prover.upload: the upload and its Montgomery form;
+    (the draws, prover.limbs: the witness to a word a wire, _wire_words'
+    native pass; prover.upload: the words' copy to the device, their
+    widening and Montgomery form;
     prover.blinds: two make_blind on the host), qap, msm (the MSMs, each
     waiting for its live count) and combine (prover.fetch: the MSMs'
     results to the host; prover.unblind; prover.group: A, B and C); after
@@ -155,11 +158,15 @@ class Prover:
         self._r2 = tf.to_tensor(FR.r2_limbs[None], self.device)
         self._consts = (dpk.alpha_g1, dpk.beta_g1, dpk.beta_g2, dpk.delta_g1,
                         dpk.delta_g2)
-        # the witness's limbs, rewritten by every proof (_limbs): the
-        # upload copies them out before it returns (a pageable, blocking
-        # copy to the card; a clone on the CPU), so no proof reads another's.
-        # A non-blocking upload would make this reuse unsafe.
-        self._limb_buf = np.empty((dpk.num_variables + 1, tf.N), np.uint32)
+        # the witness's words, rewritten by every proof (_limbs) through
+        # the numpy view: pinned on a card, so the upload copies them at
+        # the bus's rate. The copy is blocking and the widening writes a
+        # new tensor (on the CPU too), so nothing a proof keeps shares the
+        # buffer and no proof reads another's words. A non-blocking copy
+        # would make this reuse unsafe.
+        self._words = torch.empty(dpk.num_variables + 1, dtype=torch.int64,
+                                  pin_memory=cuda)
+        self._word_buf = self._words.numpy()
         # the host libraries built now, not inside the first proof
         kn.host_lib("wirelimbs.cpp")
         native.lib()
@@ -251,8 +258,8 @@ class Prover:
                 secrets.randbelow(R_MOD) if r is None else r,
                 secrets.randbelow(R_MOD) if s is None else s,
                 pp.blind_scalar(), pp.blind_scalar()))
-            limbs, _ = self._limbs(primary, aux)
-            wires_std, wires_mont = self._upload(limbs)
+            wide, _ = self._limbs(primary, aux)
+            wires_std, wires_mont = self._upload(wide)
             with _muls(spans.span("prover.blinds")):
                 (R1, b1), (R2, b2) = self._blinds(k1, k2)
 
@@ -268,22 +275,28 @@ class Prover:
         return proof
 
     def _limbs(self, primary, aux):
-        """The wires (1, primary, aux) as standard-form limbs in the reused
-        buffer, and the seconds of the span prover.limbs that makes them
-        (its info: {"wires": rows, "wide": rows that took Python's
-        branch})."""
+        """The wires (1, primary, aux) as words in the reused buffer; their
+        wide rows (_wire_words) and the seconds of the span prover.limbs
+        that makes them (its info: {"wires": rows, "wide": rows that took
+        Python's branch})."""
         with spans.Timed("prover.limbs") as lap:
-            limbs, wide = _wire_limbs(primary, aux, self._limb_buf)
-            lap.info = {"wires": len(limbs), "wide": wide}
-        return limbs, lap.seconds
+            words, wide = _wire_words(primary, aux, self._word_buf)
+            lap.info = {"wires": len(words), "wide": len(wide)}
+        return wide, lap.seconds
 
-    def _upload(self, limbs):
-        """The wires on the device, in standard and in Montgomery form; no
-        tensor shares memory with limbs."""
-        with spans.span("prover.upload"):
-            wires_std = tf.to_tensor(limbs, self.device)
-            if wires_std.device.type == "cpu":
-                wires_std = wires_std.clone()   # from_numpy shares limbs
+    def _upload(self, wide):
+        """The wires on the device, in standard and in Montgomery form:
+        the buffer's words (one blocking copy) and the wide rows copied,
+        widened by wire_widen. The span prover.upload's info: {"bytes":
+        copied, "pinned": 1 if the words crossed from pinned memory,
+        "wide": rows}. No tensor shares memory with the buffer."""
+        with spans.span("prover.upload") as sp:
+            words = self._words.to(self.device)
+            rows = torch.from_numpy(wide).to(self.device)
+            sp.info = {"bytes": self._words.nbytes + wide.nbytes,
+                       "pinned": int(self._words.is_pinned()),
+                       "wide": len(wide)}
+            wires_std = wire_widen(words, rows)
             return wires_std, pntt.mul_elementwise(wires_std, self._r2)
 
     @spans.traced("prover.prove_batch")
@@ -296,11 +309,12 @@ class Prover:
         package's prove_batch does.
 
         There is no batch axis through the kernels: this thread turns each
-        witness into limbs, uploads it and runs its QAP and MSMs (waiting
-        for the device at each MSM's live count and for its results), with
-        no sync between phases; the host combine of each proof (_combine:
-        the native group law's unblinding and A, B, C, which releases the
-        interpreter lock) runs meanwhile on the Prover's combine thread.
+        witness into words, uploads and widens it and runs its QAP and MSMs
+        (waiting for the device at each MSM's live count and for its
+        results), with no sync between phases; the host combine of each
+        proof (_combine: the native group law's unblinding and A, B, C,
+        which releases the interpreter lock) runs meanwhile on the Prover's
+        combine thread.
         The overlap rests on this thread releasing the lock too, as it
         does at every torch call and every wait for the device.
 
@@ -336,9 +350,9 @@ class Prover:
             pool = self._host_pool()
             proofs = []
             for (primary, aux), r, s in zip(instances, rs, ss):
-                limbs, seconds = self._limbs(primary, aux)
+                wide, seconds = self._limbs(primary, aux)
                 self.timings["limbs"] += seconds
-                wires_std, wires_mont = self._upload(limbs)
+                wires_std, wires_mont = self._upload(wide)
                 H_std = self._qap(wires_mont)
                 msms = _to_numpy(self._msms(wires_std, H_std, b1, b2))
                 with spans.span("prover.submit"):
@@ -365,29 +379,61 @@ class Prover:
             self._pool = None
 
 
-def _wire_limbs(primary, aux, out: np.ndarray):
-    """The wires (1, primary, aux) as (n, 16) uint32 standard-form limbs,
-    equal to tf.ints_to_limbs([1] + list(primary) + list(aux)) with its
-    errors, written into out (returned), and how many wires took the wide
-    branch. One native pass (csrc/wirelimbs.cpp) writes every int
-    below 2^64; each other wire (2^64 and above, negative, not an int)
-    goes through int(x).to_bytes(32, "little") here, which raises what
-    ints_to_limbs raises."""
+def _wire_words(primary, aux, out: np.ndarray):
+    """The wires (1, primary, aux) as one little-endian 64-bit word a wire,
+    written into out ((n,) int64, returned), and the wide rows: a (k, 17)
+    int32 array, each a wire's row and its 16 standard-form limbs, for the
+    k wires a word cannot hold (2^64 and above, negative, not an exact
+    int), whose words are 0. wire_widen of the two equals
+    tf.ints_to_limbs([1] + list(primary) + list(aux)), and this raises what
+    that raises. One native pass (csrc/wirelimbs.cpp) writes every word;
+    each wide wire's limbs come from int(x).to_bytes(32, "little") here."""
     primary = primary if type(primary) is list else list(primary)
     aux = aux if type(aux) is list else list(aux)
     n = 1 + len(primary) + len(aux)
-    if out.shape != (n, tf.N) or out.dtype != np.uint32 or \
+    if out.shape != (n,) or out.dtype != np.int64 or \
             not out.flags.c_contiguous:
-        raise ValueError(f"limbs of {n} wires need a C-contiguous ({n}, "
-                         f"{tf.N}) uint32 array, got {out.shape} {out.dtype}")
+        raise ValueError(f"the words of {n} wires need a C-contiguous ({n},) "
+                         f"int64 array, got {out.shape} {out.dtype}")
     rows = np.empty(n, np.int64)
-    k = kn.host_lib("wirelimbs.cpp").bm_wire_limbs(
+    k = kn.host_lib("wirelimbs.cpp").bm_wire_words(
         primary, aux, out.ctypes.data, n, rows.ctypes.data)
-    for row in rows[:k].tolist():
+    wide = np.empty((k, 1 + tf.N), np.int32)
+    for i, row in enumerate(rows[:k].tolist()):
         x = primary[row - 1] if row <= len(primary) else \
             aux[row - 1 - len(primary)]
-        out[row] = np.frombuffer(int(x).to_bytes(32, "little"), "<u2")
-    return out, k
+        wide[i, 0] = row
+        wide[i, 1:] = np.frombuffer(int(x).to_bytes(32, "little"), "<u2")
+    return out, wide
+
+
+def wire_widen_plain(words, wide):
+    """wire_widen's plain version (any device)."""
+    shifts = torch.arange(0, 64, 16, device=words.device)
+    out = torch.zeros((words.shape[0], tf.N), dtype=torch.int32,
+                      device=words.device)
+    out[:, :4] = (words[:, None] >> shifts & 0xFFFF).to(torch.int32)
+    out[wide[:, 0].long()] = wide[:, 1:]
+    return out
+
+
+def wire_widen(words, wide):
+    """The (n, 16) int32 standard-form limbs of n wires from their (n,)
+    int64 words (_wire_words: each the wire's value below 2^64, its bits
+    as an int64), then each wide row (wide: (k, 17) int32, a row in [0, n)
+    and its 16 limbs) written over its slot. The kernel wire_widen
+    (csrc/widen.cu) on a card, wire_widen_plain on the CPU."""
+    if kn.on_cpu(words, wide):
+        return wire_widen_plain(words, wide)
+    n, k = words.shape[0], wide.shape[0]
+    if words.shape != (n,) or words.dtype != torch.int64 or \
+            wide.shape != (k, 1 + tf.N):
+        raise ValueError(f"wire_widen: bad inputs {tuple(words.shape)} "
+                         f"{words.dtype}, {tuple(wide.shape)}")
+    kn.check_cuda("wire_widen", words.view(torch.int32), wide)
+    out = torch.empty((n, tf.N), dtype=torch.int32, device=words.device)
+    kn.K["wire_widen"](out, words, n, wide, k)
+    return out
 
 
 def _to_numpy(msms):

@@ -26,7 +26,7 @@ released (ctypes.CDLL), and its entry points' argtypes and restypes;
 host_lib(source) builds and binds it once a process:
 
     keyparse.cpp    the key-text tokenizer (serialization/native_io.py)
-    wirelimbs.cpp   the prover's witness limbs; reads Python objects, so
+    wirelimbs.cpp   the prover's witness words; reads Python objects, so
                     it takes the interpreter's headers and holds the lock
     hostcurve.cpp   the proof's host group law (curves/native.py), -O3
 """
@@ -83,6 +83,7 @@ SIGNATURES = {
     "bm_msm_fold": [_I, _P, _P, _P, _I, _I, _P, _P, _P, _P],
     "bm_fixed_base_exp": [_I] + [_P] * 8 + [_LL, _P],
     "bm_decompress": [_I] + [_P] * 7 + [_LL, _P],
+    "bm_wire_widen": [_P, _P, _LL, _P, _LL, _P],
 }
 
 
@@ -103,7 +104,7 @@ HOST_LIBS = {
         "bm_keytext_free": ([_P], None)}),
     "wirelimbs.cpp": HostLib(
         ("-I" + sysconfig.get_paths()["include"],), True, {
-            "bm_wire_limbs": ([ctypes.py_object, ctypes.py_object, _P, _LL,
+            "bm_wire_words": ([ctypes.py_object, ctypes.py_object, _P, _LL,
                                _P], _LL)}),
     "hostcurve.cpp": HostLib(("-O3",), False, {
         "bm_hc_mul": ([_I, _P, _P, _P], _I),
@@ -418,6 +419,12 @@ K = {
     "decompress_g2": Kernel("decompress_g2", "bm_decompress",
                             "blockmaze_tpu_torch/csrc/keyload.cu",
                             "blockmaze_tpu/native/keyparse.cpp:265"),
+    # the witness's 8-byte words (and its few wide rows) to standard-form
+    # limbs on the card; no TPU kernel: the JAX package uploaded the host's
+    # 64-byte limb rows (jnp.asarray of ints_to_limbs)
+    "wire_widen": Kernel("wire_widen", "bm_wire_widen",
+                         "blockmaze_tpu_torch/csrc/widen.cu",
+                         "blockmaze_tpu/groth16/prover.py:322"),
 }
 
 

@@ -39,7 +39,9 @@ The spans the port opens, by layer (`layer.stage`):
   prover.combine (prove) and prover.blinds, prover.dispatch,
   prover.drain (prove_batch); inside them prover.limbs (its info
   {"wires": n, "wide": k}: the witness's n rows and the k of them that
-  left the native pass for Python's), prover.upload, prover.blinds
+  left the native pass for Python's), prover.upload (its info {"bytes":
+  copied to the device, "pinned": 1 if the words crossed from pinned
+  memory, else 0, "wide": k}), prover.blinds
   (prove's two make_blind), prover.fetch, prover.unblind, prover.group
   and prover.submit (groth16/prover.py; in prove_batch prover.unblind and
   prover.group run on the combine thread, children of

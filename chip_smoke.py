@@ -39,7 +39,13 @@ Phases, each timed; any failure raises and the script exits nonzero:
      from circuits/instances.py, keygen with seeded toxic waste, Prover on
      cuda:0, three proofs, each verified by the port's verifier, the two
      with equal (r, s) equal, each constraint matrix's terms, longest row
-     and warp rows, live items and lanes per MSM); then mul_elementwise
+     and warp rows, live items and lanes per MSM); then the witness's way
+     to the card (widen_parity: wire_widen bit-exact against its plain
+     version and ints_to_limbs on the witness's own words and wide rows
+     and on a block of wide rows, the Prover's _limbs + _upload equal to
+     mul_elementwise(to_tensor(ints_to_limbs)) by R^2, and the blocking
+     copies of the pinned words, the pageable words and the pageable
+     64-byte rows timed); mul_elementwise
      on the mint witness by the R^2 row (its one launch on the main path;
      timed beside the host to_mont_host it replaced) and qap_matvec on the
      mint key's own CSR and witness (bit-exact, timed), one more QAP
@@ -50,7 +56,8 @@ Phases, each timed; any failure raises and the script exits nonzero:
      counts, and a profiled proof;
   4. send (basic domain, 2^18), redeem (step, 2^17 + 2^16), deposit
      (basic, 2^19) and deposit20 (deposit at Merkle depth 20: basic, 2^20,
-     window c = 13) end to end, each as mint in run_circuit; on each basic
+     window c = 13) end to end, each as mint in run_circuit; on deposit
+     and deposit20 widen_parity as on mint; on each basic
      domain the QAP witness map on the card against its plain path on the
      card, on the circuit's own CSR and witness; on deposit20 the four MSM
      kernels at c = 13, W = 20 against their plain versions on the proof's
@@ -175,8 +182,9 @@ single-stage butterfly, which fft replaced; on a step domain at most 28
 fft launches per proof (two passes for each of 14 FFTs) and at most 12 of
 qap_matvec, step_pre, step_post and qap_combine; on a basic domain at most
 14 fft launches (7 FFTs of two passes, their factors inside), one
-qap_matvec, one qap_combine, no step_pre or step_post; on both at most one
-mul_elementwise (the witness's Montgomery form). add, double,
+qap_matvec, one qap_combine, no step_pre or step_post; on both at most
+one wire_widen (the witness's words to limbs) and one mul_elementwise
+(their Montgomery form). add, double,
 mixed_add, mixed_add_noexc and butterfly are on neither path; phase 1
 holds them against their plain versions. The mesh prove path by domain
 kind (MESH_PATH, per proof of a 4-shard Prover): the single-card path's
@@ -264,7 +272,7 @@ ORDER = ["fft", "butterfly", "mul_elementwise", "qap_matvec", "step_pre",
          "step_post", "qap_combine", "add", "double", "msm_round",
          "msm_combine", "msm_triangle", "msm_fold", "mixed_add",
          "mixed_add_noexc", "fixed_base_exp", "decompress_g1",
-         "decompress_g2"]
+         "decompress_g2", "wire_widen"]
 # keygen: one fixed_base_exp per query (A, H, L, the vk's inputs, B in G2
 # and G1) and the coefficients' Montgomery form in one mul_elementwise;
 # the batched point kernels it ran before stay off this path too
@@ -288,19 +296,20 @@ OFF_PROVE_PATH = POINT_KERNELS + ["fixed_base_exp", "butterfly",
 # must not launch, and the most launches per proof of each group of
 # kernels. A step domain's 7 FFTs each run a big and a small part (two
 # passes each); a basic domain's 7 FFTs two passes each, their pointwise
-# factors inside; the witness takes its Montgomery form in one
-# mul_elementwise.
+# factors inside; the witness's words take their limbs in one wire_widen
+# and their Montgomery form in one mul_elementwise.
 PROVE_PATH = {
-    "step": {"launch": ["fft", "mul_elementwise", *QAP_KERNELS,
-                        *MSM_KERNELS],
+    "step": {"launch": ["wire_widen", "fft", "mul_elementwise",
+                        *QAP_KERNELS, *MSM_KERNELS],
              "never": OFF_PROVE_PATH,
-             "at_most": [(["fft"], 28), (["mul_elementwise"], 1),
-                         (QAP_KERNELS, 12)]},
-    "basic": {"launch": ["fft", "mul_elementwise", "qap_matvec",
-                         "qap_combine", *MSM_KERNELS],
+             "at_most": [(["wire_widen"], 1), (["fft"], 28),
+                         (["mul_elementwise"], 1), (QAP_KERNELS, 12)]},
+    "basic": {"launch": ["wire_widen", "fft", "mul_elementwise",
+                         "qap_matvec", "qap_combine", *MSM_KERNELS],
               "never": OFF_PROVE_PATH + ["step_pre", "step_post"],
-              "at_most": [(["fft"], 14), (["mul_elementwise"], 1),
-                          (["qap_matvec"], 1), (["qap_combine"], 1)]},
+              "at_most": [(["wire_widen"], 1), (["fft"], 14),
+                          (["mul_elementwise"], 1), (["qap_matvec"], 1),
+                          (["qap_combine"], 1)]},
 }
 # phase 4's circuits, in order (mint is phase 3's); deposit20 is the
 # deposit at Merkle depth 20
@@ -314,23 +323,23 @@ MESH_CIRCUITS = ["mint", "deposit20"]
 # launches a transform (its batch of column FFTs, its batch of row FFTs;
 # a step domain's big and small part each), one qap_matvec (its block of
 # rows) and the MSM kernels of its block of every MSM; the lead device
-# the witness's Montgomery form, the step domain's stages and
+# the witness's limbs and Montgomery form, the step domain's stages and
 # qap_combine; each MSM folds its shards' partials with n - 1 point adds.
 MESH_NEVER = ["butterfly", "double", "mixed_add", "mixed_add_noexc",
               "fixed_base_exp", *DECOMPRESS]
 MESH_PATH = {
-    "step": {"launch": ["fft", "mul_elementwise", *QAP_KERNELS,
-                        *MSM_KERNELS, "add"],
+    "step": {"launch": ["wire_widen", "fft", "mul_elementwise",
+                        *QAP_KERNELS, *MSM_KERNELS, "add"],
              "never": MESH_NEVER,
-             "at_most": [(["fft"], 28 * MESH_SHARDS),
+             "at_most": [(["wire_widen"], 1), (["fft"], 28 * MESH_SHARDS),
                          (["mul_elementwise"], 1),
                          (["qap_matvec"], MESH_SHARDS),
                          (["step_pre", "step_post", "qap_combine"], 8),
                          (["add"], 5 * (MESH_SHARDS - 1))]},
-    "basic": {"launch": ["fft", "mul_elementwise", "qap_matvec",
-                         "qap_combine", *MSM_KERNELS, "add"],
+    "basic": {"launch": ["wire_widen", "fft", "mul_elementwise",
+                         "qap_matvec", "qap_combine", *MSM_KERNELS, "add"],
               "never": MESH_NEVER + ["step_pre", "step_post"],
-              "at_most": [(["fft"], 14 * MESH_SHARDS),
+              "at_most": [(["wire_widen"], 1), (["fft"], 14 * MESH_SHARDS),
                           (["mul_elementwise"], 1),
                           (["qap_matvec"], MESH_SHARDS),
                           (["qap_combine"], 1),
@@ -360,24 +369,28 @@ MSMBENCH_WINDOW = 13
 
 def process_mesh_path(ranks: int) -> dict:
     """The process mesh's prove path by domain kind, per rank and proof:
-    two fft launches a transform (the rank's column batch, its row
-    batch), one qap_matvec (its block of rows), the step domain's stages
-    and qap_combine on every rank, each MSM's partials folded with ranks
-    - 1 point adds; never the kernels off MESH_PATH. The MSM kernels are
-    not required of a rank: one whose block of every MSM is padding (the
-    last of four on mint, whose queries fill 3/4 of 2^18 rows) launches
-    none; phase 8 requires them of the ranks together."""
+    one wire_widen and one mul_elementwise (each rank's witness on its
+    lead device), two fft launches a transform (the rank's column batch,
+    its row batch), one qap_matvec (its block of rows), the step domain's
+    stages and qap_combine on every rank, each MSM's partials folded with
+    ranks - 1 point adds; never the kernels off MESH_PATH. The MSM kernels
+    are not required of a rank: one whose block of every MSM is padding
+    (the last of four on mint, whose queries fill 3/4 of 2^18 rows)
+    launches none; phase 8 requires them of the ranks together."""
     return {
-        "step": {"launch": ["fft", "mul_elementwise", *QAP_KERNELS, "add"],
+        "step": {"launch": ["wire_widen", "fft", "mul_elementwise",
+                            *QAP_KERNELS, "add"],
                  "never": MESH_NEVER,
-                 "at_most": [(["fft"], 28), (["mul_elementwise"], 1),
+                 "at_most": [(["wire_widen"], 1), (["fft"], 28),
+                             (["mul_elementwise"], 1),
                              (["qap_matvec"], 1),
                              (["step_pre", "step_post", "qap_combine"], 8),
                              (["add"], 5 * (ranks - 1))]},
-        "basic": {"launch": ["fft", "mul_elementwise", "qap_matvec",
-                             "qap_combine", "add"],
+        "basic": {"launch": ["wire_widen", "fft", "mul_elementwise",
+                             "qap_matvec", "qap_combine", "add"],
                   "never": MESH_NEVER + ["step_pre", "step_post"],
-                  "at_most": [(["fft"], 14), (["mul_elementwise"], 1),
+                  "at_most": [(["wire_widen"], 1), (["fft"], 14),
+                              (["mul_elementwise"], 1),
                               (["qap_matvec"], 1), (["qap_combine"], 1),
                               (["add"], 5 * (ranks - 1))]}}
 
@@ -1593,13 +1606,15 @@ def phase9(name, dev, report):
 
 
 def phase3(dev, report):
-    """Mint end to end (run_circuit), then mint's own checks: K2 on the
-    witness and qap_matvec on the key's CSR (qap_parity), msm_round on the
+    """Mint end to end (run_circuit), then mint's own checks: wire_widen
+    and the witness's upload (widen_parity), K2 on the witness and
+    qap_matvec on the key's CSR (qap_parity), msm_round on the
     proof's streams, the lane sweep and a profiled proof. Returns the
     paths' launch counts."""
     prover, primary, aux, path_counts = run_circuit("mint", dev)
     log("  add, double, mixed_add and mixed_add_noexc run on neither path; "
         "phase 1 holds them against their plain versions")
+    widen_parity("mint", prover, primary, aux, report)
     qap_parity(prover, primary, aux, report)
     mint_stream_parity(prover, report)
     lane_sweep(prover)
@@ -1608,13 +1623,16 @@ def phase3(dev, report):
 
 
 def phase4(name, dev, report):
-    """Circuit `name` end to end (run_circuit); on a basic domain the whole
-    QAP witness map on the card against its plain path on the card
+    """Circuit `name` end to end (run_circuit); on deposit and deposit20
+    the witness's way to the card (widen_parity); on a basic domain the
+    whole QAP witness map on the card against its plain path on the card
     (qap_h_parity); on deposit20, the one circuit whose MSMs take c = 13,
     the MSM's four kernels against their plain versions on the proof's own
     A and H streams (stream_parity). Returns the paths' launch counts."""
     from blockmaze_tpu_torch.msm import pippenger as pp
     prover, primary, aux, path_counts = run_circuit(name, dev)
+    if name in ("deposit", "deposit20"):
+        widen_parity(name, prover, primary, aux, report)
     if domain_kind(prover.domain) == "basic":
         qap_h_parity(name, prover, primary, aux, report)
     if name == "deposit20":
@@ -1677,6 +1695,96 @@ def qap_h_parity(name, prover, primary, aux, report):
     for k in ("fft", "qap_matvec", "qap_combine"):
         report[k]["max_abs_err"] = max(report[k].get("max_abs_err", 0),
                                        res[0])
+
+
+def copy_ms(src, dev, reps: int = 10) -> float:
+    """Milliseconds of one blocking copy of src (a host tensor) to dev,
+    host clock around reps copies after a warm one."""
+    src.to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        src.to(dev)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def widen_parity(name, prover, primary, aux, report):
+    """The witness's way to the card: wire_widen against its plain version
+    on the card on the circuit's own words and wide rows (the kernel
+    table's row at mint, deposit and deposit20) and on a block of wide
+    rows alone (2^64 - 1 beside 2^64 at its ends), both equal to
+    ints_to_limbs; the Prover's own _limbs and _upload (the words from
+    its pinned buffer) equal to the route they replace,
+    mul_elementwise(to_tensor(ints_to_limbs(wires))) by R^2; and the
+    blocking copy of the words from pinned memory beside the pageable
+    copies of the words and of the 64-byte limb rows."""
+    from blockmaze_tpu_torch.fields import tfield as tf
+    from blockmaze_tpu_torch.groth16.prover import (_wire_words, wire_widen,
+                                                    wire_widen_plain)
+    from blockmaze_tpu_torch.ntt import pntt
+    dev = prover.device
+    wires = [1] + list(primary) + list(aux)
+    n = len(wires)
+    limbs = tf.ints_to_limbs(wires)
+    old = tf.to_tensor(limbs, dev)
+    words, wide = _wire_words(primary, aux, np.empty(n, np.int64))
+    k = len(wide)
+    wd, wided = (torch.from_numpy(a).to(dev) for a in (words, wide))
+    res = check_kernel(
+        "wire_widen", f"{name} witness: {n} words, {k} wide rows",
+        lambda: wire_widen(wd, wided), lambda: wire_widen_plain(wd, wided),
+        reps=20)
+    if not torch.equal(wire_widen(wd, wided), old):
+        raise AssertionError(f"wire_widen: {name}'s limbs differ from "
+                             f"ints_to_limbs")
+    moved = (8 + ROW) * n + (4 * (1 + tf.N) + ROW) * k
+    record_kernel(report, "wire_widen", res, 0, moved,
+                  tag=None if name == "mint" else name)
+    # the events above time back-to-back wrapper calls, whose host side
+    # outlasts so short a kernel; the profiler gives the device's own time
+    _, rows, _, _ = profiled(lambda: [wire_widen(wd, wided)
+                                      for _ in range(10)])
+    dev_ms = sum(us for key, us, _, is_dev in rows
+                 if is_dev and "wide" in key) / 10 / 1e3
+    log(f"  {'':<16} device time (profiler) {dev_ms:.5f} ms a call")
+    report["wire_widen"].setdefault("device_ms", {})[name] = dev_ms
+    block = [2**64 - 1, 2**64] + [2**64 + 3 * i for i in range(1 << 16)] \
+        + [2**256 - 1, 2**64]
+    bw, bwide = _wire_words([], block, np.empty(len(block) + 1, np.int64))
+    bwd, bwided = (torch.from_numpy(a).to(dev) for a in (bw, bwide))
+    check_kernel("wire_widen", f"{len(bwide)} of {len(bw)} rows wide",
+                 lambda: wire_widen(bwd, bwided),
+                 lambda: wire_widen_plain(bwd, bwided))
+    if not torch.equal(wire_widen(bwd, bwided),
+                       tf.to_tensor(tf.ints_to_limbs([1] + block), dev)):
+        raise AssertionError("wire_widen: the wide block differs from "
+                             "ints_to_limbs")
+    t0 = time.perf_counter()
+    wide_p, _ = prover._limbs(primary, aux)
+    std, mont = prover._upload(wide_p)
+    torch.cuda.synchronize()
+    t_path = time.perf_counter() - t0
+    if not (torch.equal(std, old) and torch.equal(
+            mont, pntt.mul_elementwise(old, prover._r2))):
+        raise AssertionError(f"{name}: the Prover's wires differ from "
+                             f"mul_elementwise(to_tensor(ints_to_limbs))")
+    pinned = prover._words
+    if not pinned.is_pinned():
+        raise AssertionError(f"{name}: the Prover's words are not pinned")
+    copies = {}
+    for label, src in (("pinned words", pinned),
+                       ("pageable words", torch.from_numpy(words)),
+                       ("pageable 64-B rows", torch.from_numpy(
+                           limbs.view(np.int32)))):
+        ms = copy_ms(src, dev)
+        copies[label] = {"MB": src.nbytes / 1e6, "ms": ms,
+                         "GB_per_s": src.nbytes / ms / 1e6}
+    log(f"  {name} witness to the card: _limbs + _upload {t_path * 1e3:.2f}"
+        f" ms, {k} wide rows; blocking copies: " + "; ".join(
+            f"{label} {c['MB']:.2f} MB {c['ms']:.3f} ms "
+            f"({c['GB_per_s']:.2f} GB/s)" for label, c in copies.items()))
+    report["wire_widen"].setdefault("copies", {})[name] = copies
 
 
 def qap_parity(prover, primary, aux, report):
@@ -2017,8 +2125,8 @@ def profile_prove(prover, primary, aux):
                 "combine_kernel<bm::Fq>",
                 "combine_kernel<bm::Fq2>", "triangle_kernel<bm::Fq>",
                 "triangle_kernel<bm::Fq2>", "fold_kernel<bm::Fq>",
-                "fold_kernel<bm::Fq2>", "aten::sort", "RadixSort",
-                "aten::nonzero"):
+                "fold_kernel<bm::Fq2>", "widen_kernel", "wide_rows_kernel",
+                "Memcpy HtoD", "aten::sort", "RadixSort", "aten::nonzero"):
         hit = [(us, n) for key, us, n, _ in rows if tag in key]
         log(f"    {tag:<30} {sum(u for u, _ in hit) / 1e3:9.3f} ms "
             f"{sum(n for _, n in hit):5d}x")

@@ -13,9 +13,10 @@ import textwrap
 
 import numpy as np
 import pytest
+import torch
 
 from blockmaze_tpu_torch.fields import tfield as tf
-from blockmaze_tpu_torch.groth16.prover import _wire_limbs
+from blockmaze_tpu_torch.groth16.prover import _wire_words, wire_widen
 from blockmaze_tpu_torch.msm import pippenger as pp
 from blockmaze_tpu_torch.ntt import domain as D
 from blockmaze_tpu_torch.r1cs.gadgets.basic import PackingGadget
@@ -93,10 +94,11 @@ def test_wide_wires_take_the_exact_limbs(case):
     prover's limbs equal ints_to_limbs on each of them."""
     primary, aux = PROG.witness(transaction(case), config())
     wires = [1] + list(primary) + list(aux)
-    buf = np.empty((len(wires), tf.N), np.uint32)
-    limbs, wide = _wire_limbs(primary, aux, buf)
-    assert wide == sum(w >= 2**64 for w in wires) >= len(primary)
-    assert np.array_equal(limbs, tf.ints_to_limbs(wires))
+    words, wide = _wire_words(primary, aux, np.empty(len(wires), np.int64))
+    assert len(wide) == sum(w >= 2**64 for w in wires) >= len(primary)
+    limbs = wire_widen(torch.from_numpy(words), torch.from_numpy(wide))
+    assert np.array_equal(limbs.numpy().view(np.uint32),
+                          tf.ints_to_limbs(wires))
 
 
 def test_overspend_leaves_the_r1cs_unsatisfied(board, monkeypatch):

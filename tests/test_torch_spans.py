@@ -23,6 +23,7 @@ from blockmaze_tpu_torch.fields.constants import R_MOD
 from blockmaze_tpu_torch.groth16 import generator, keys
 from blockmaze_tpu_torch.groth16.prover import Prover
 from blockmaze_tpu_torch.msm import pippenger as pp
+from blockmaze_tpu_torch.ntt import pntt
 from blockmaze_tpu_torch.utils import spans
 from blockmaze_tpu_torch.zktx import api
 from portbench import run as prun
@@ -320,6 +321,40 @@ def test_limbs_span_counts_wide_wires_and_proofs_keep_their_limbs(
     for (std, _), w in zip(uploaded, wires):
         assert np.array_equal(std.numpy().view(np.uint32),
                               tf.ints_to_limbs(w))
+
+
+def test_upload_span_counts_the_words_and_wide_rows_it_copies(monkeypatch,
+                                                             recorder):
+    """prover.upload's info: 8 bytes a wire and 68 a wide row (its row and
+    16 limbs), not pinned on the CPU, the wide rows prover.limbs counted;
+    its Montgomery form equals the route through ints_to_limbs."""
+    pbs = [toy_circuit(w * w % R_MOD, w) for w in (2**100 + 7, 5)]
+    toxic = iter([3, 5, 7, 11, 13])
+    pk, _ = generator.generate(pbs[0], "cpu", rng=lambda: next(toxic))
+    monkeypatch.setattr(pp, "msm_stream", infinity_msm)
+    dpk = keys.build_device_pk(pk)
+    prover = Prover(dpk, "cpu", lanes=8, window=4)
+    uploaded = []
+
+    def upload(wide, _upload=prover._upload):
+        uploaded.append(_upload(wide))
+        return uploaded[-1]
+
+    monkeypatch.setattr(prover, "_upload", upload)
+    for pb in pbs:
+        prover.prove(pb.primary_input(), pb.auxiliary_input(), r=7, s=9)
+    spans.disable()
+    recorded = spans.drain()
+    limbs = [s.info for s in recorded if s.name == "prover.limbs"]
+    uploads = [s.info for s in recorded if s.name == "prover.upload"]
+    n = dpk.num_variables + 1
+    assert uploads == [{"bytes": 8 * n + 68 * i["wide"], "pinned": 0,
+                        "wide": i["wide"]} for i in limbs]
+    assert uploads[0]["wide"] > 0 == uploads[1]["wide"]
+    for (_, mont), pb in zip(uploaded, pbs):
+        std = tf.to_tensor(tf.ints_to_limbs(
+            [1] + pb.primary_input() + pb.auxiliary_input()), "cpu")
+        assert torch.equal(mont, pntt.mul_elementwise(std, prover._r2))
 
 
 def test_msm_query_spans_hold_the_stream_and_its_lane_cut(monkeypatch,
