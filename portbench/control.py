@@ -31,7 +31,7 @@ import os
 import sys
 
 from . import judge, spec
-from .run import Context, process_age, say, window
+from .run import Context, cards, process_age, say, window
 from . import loops
 
 
@@ -93,12 +93,12 @@ PLANTS = {"zk_off": zk_off, "other_setup": other_setup, "altered": altered,
           "half_batch": half_batch}
 
 
-def readings(root: str, workload: str, seeds, seconds: float, device,
+def readings(root: str, workload: str, seeds, seconds: float, devices,
              plant=None):
     """Yield, for each seed, the judge's checks of a window of that seed's
-    traffic, after one set-up."""
+    traffic on the cell's `devices`, after one set-up."""
     cell = spec.Cell(root, workload)
-    ctx = Context(cell, seeds[0], device, False)
+    ctx = Context(cell, seeds[0], devices, False)
     loop = loops.KINDS[cell.traffic["kind"]](ctx)
     if plant is not None:
         plant(loop)
@@ -127,13 +127,14 @@ def main(argv=None) -> int:
     p.add_argument("--plant", choices=sorted(PLANTS), default=None)
     args = p.parse_args(argv)
     import torch
-    if not torch.cuda.is_available():
-        say("no CUDA device visible")
+    cell = spec.Cell(os.getcwd(), args.workload)
+    if not torch.cuda.is_available() or \
+            torch.cuda.device_count() < cell.chips:
+        say(f"{args.workload} needs {cell.chips} CUDA device(s)")
         return 2
     seeds = [int(s) for s in args.seeds.split(",")]
     for reading in readings(os.getcwd(), args.workload, seeds, args.seconds,
-                            torch.device("cuda", 0),
-                            PLANTS.get(args.plant)):
+                            cards(cell.chips), PLANTS.get(args.plant)):
         reading["plant"] = args.plant
         print(json.dumps(reading), flush=True)
     return 0

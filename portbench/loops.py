@@ -12,6 +12,17 @@ A mix's file names its kind and the kind's parameters:
 
 "warm" (batch, tx) sets how many batches or transactions warm up.
 
+What serves prove and batch traffic: the configuration's prover(dpk,
+devices), where its .py defines one, is handed the deployment's proving
+key and the cell's cards (ctx.devices, in order); otherwise the loop builds
+Prover(dpk, ctx.device), one card's. The object provides prove(primary,
+aux, r=, s=) -> proof; prove_batch(witnesses, rs, ss) -> proofs, in order;
+timings, the last call's laps ("wires", "qap", "msm", "combine" after
+prove; "blinds", "dispatch", "drain" after prove_batch), which
+prove_phases and Batch.phases read; close(); and, where a traced prove
+cell's metrics read them (portbench.peaks.msm_round_work), msm_inputs,
+window and lanes, as Prover has them.
+
 Everything a run sends comes from its seed: the transactions from the
 stream "pool" (or "tx"), the draws (r, s) from the stream "draws", so one
 seed gives the same requests in the same order, and every seed the same
@@ -95,12 +106,18 @@ class Prove:
         self.pool_size = ctx.traffic[self.size_key]
 
     def setup(self):
+        """The keys, what serves the traffic (the module's docstring), and
+        the seed's pool, warmed."""
         from blockmaze_tpu_torch.groth16.prover import Prover
         ctx = self.ctx
         self.laps = Laps()
         self.keys = Keys(ctx)
         self.laps("keys")
-        self.prover = Prover(self.keys.dpk, ctx.device)
+        serve = getattr(ctx.prog, "prover", None)
+        if serve is None:
+            self.prover = Prover(self.keys.dpk, ctx.device)
+        else:
+            self.prover = serve(self.keys.dpk, ctx.devices)
         self.laps("prover")
         self.make_pool(ctx.seed)
 

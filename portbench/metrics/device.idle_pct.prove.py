@@ -1,6 +1,7 @@
-"""The share of the traced window in which no operation ran on the card
-(1 - the union of the device's operation intervals over the window), in
-a cell of prove traffic."""
+"""The share of the traced window in which no operation ran on the card,
+the mean over the cell's cards (1 - busy_s over the window, busy_s each
+card's union of operation intervals, averaged over the cards), in a cell
+of prove traffic."""
 
 
 def read(run):

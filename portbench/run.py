@@ -14,6 +14,12 @@ which runs the window under torch.profiler), device and, last, checks,
 each number compared with its limit. The same checks are the last lines
 of standard error.
 
+A cell runs on cards cuda:0 ... cuda:{chips-1} (BENCHMARK.json's
+"chips"). device.memory_peak_bytes is the fullest card's peak and
+memory_peak_bytes_by_card every card's; with --trace 1, busy_s is the mean
+over the cell's cards of each card's busy seconds (portbench/trace.py) and
+busy_s_by_card every card's.
+
 It exits nonzero and prints no result when no card is visible, when the
 card count is below the cell's, or when jax, jaxlib, flax or the JAX
 package is loaded once the window has closed.
@@ -58,17 +64,26 @@ def card_line() -> str:
     return "; ".join(res.stdout.strip().splitlines()) or "nvidia-smi: none"
 
 
+def cards(chips: int) -> list:
+    """The devices of a cell of `chips` cards: cuda:0 ... cuda:{chips-1}."""
+    import torch
+    return [torch.device("cuda", i) for i in range(chips)]
+
+
 class Context:
     """What a loop needs: the cell's configuration (its file, its program
     module, its plain reference), its traffic's parameters, the seed, the
-    device, whether the window is traced, and the checkout's cache."""
+    cell's devices (devices, in order; device, the first, where the keys
+    and a Prover of one card live), whether the window is traced, and the
+    checkout's cache."""
 
-    def __init__(self, cell: spec.Cell, seed: int, device, trace: bool):
+    def __init__(self, cell: spec.Cell, seed: int, devices, trace: bool):
         self.cell = cell
         self.config = cell.config
         self.traffic = cell.traffic
         self.seed = seed
-        self.device = device
+        self.devices = list(devices)
+        self.device = self.devices[0]
         self.trace = trace
         # the program's keys come from this trusted setup (a control may
         # change it; the judge holds the program to the configuration's)
@@ -94,9 +109,11 @@ class Run:
 
 def window(loop, seconds: float, trace: bool):
     """The closed loop: requests back to back until `seconds` have passed
-    since the first call. (records, failed, window seconds, tracer)."""
+    since the first call. (records, failed, window seconds, tracer). A
+    traced window synchronises every card of loop.ctx.devices at both
+    ends."""
     records, failed, n = [], 0, 0
-    with Tracer(trace) as tracer:
+    with Tracer(trace, loop.ctx.devices if trace else ()) as tracer:
         t0 = time.perf_counter()
         while True:
             try:
@@ -122,13 +139,14 @@ def read_metrics(cell, run, trace: bool) -> dict:
 
 
 def run_cell(root: str, workload: str, seed: int, seconds: float,
-             trace: bool, device, plant=None) -> dict:
-    """One run of the cell on `device`: the result object. plant(loop), if
-    given, is called before the set-up: a control or a fault put in place
-    of the program's path (portbench/control.py)."""
+             trace: bool, devices, plant=None) -> dict:
+    """One run of the cell on `devices` (its cards, in order: cards(chips)
+    on the card, ["cpu"] for the plain kernels): the result object.
+    plant(loop), if given, is called before the set-up: a control or a
+    fault put in place of the program's path (portbench/control.py)."""
     import torch
     cell = spec.Cell(root, workload)
-    ctx = Context(cell, seed, device, trace)
+    ctx = Context(cell, seed, devices, trace)
     loop = loops.KINDS[cell.traffic["kind"]](ctx)
     if plant is not None:
         plant(loop)
@@ -137,11 +155,13 @@ def run_cell(root: str, workload: str, seed: int, seconds: float,
     setup_s = process_age()
     say(f"set-up {setup_s:.3f} s: process start to set-up {started:.3f}, "
         + ", ".join(f"{k} {v:.3f}" for k, v in loop.laps.items()))
-    cuda = torch.device(device).type == "cuda"
+    cuda = torch.device(ctx.device).type == "cuda"
     if cuda:
-        torch.cuda.reset_peak_memory_stats(device)
+        for d in ctx.devices:
+            torch.cuda.reset_peak_memory_stats(d)
     records, failed, window_s, tracer = window(loop, seconds, trace)
-    peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+    peaks = [torch.cuda.max_memory_allocated(d) if cuda else 0
+             for d in ctx.devices]
     say(f"window: {len(records)} requests, {failed} failed, "
         f"{window_s:.3f} s")
     tr = tracer.trace()
@@ -157,11 +177,14 @@ def run_cell(root: str, workload: str, seed: int, seconds: float,
         "attempted": len(records) + failed, "failed": failed,
         "metrics": read_metrics(cell, run, trace),
         "device": {"platform": "gpu" if cuda else "cpu",
-                   "kind": (torch.cuda.get_device_name(device) if cuda
-                            else "cpu"),
-                   "count": cell.chips, "memory_peak_bytes": peak}}
+                   "kind": (torch.cuda.get_device_name(ctx.device)
+                            if cuda else "cpu"),
+                   "count": cell.chips, "memory_peak_bytes": max(peaks),
+                   "memory_peak_bytes_by_card": peaks}}
     if tr is not None:
-        result["device"].update(busy_s=tr.busy_s, window_s=tr.window_s)
+        result["device"].update(busy_s=tr.busy_s,
+                                busy_s_by_card=tr.busy_s_by_card,
+                                window_s=tr.window_s)
         result["breakdown"] = {"device_ops": tr.by_name(),
                                "idle_gaps": tr.idle_by_phase(phases)}
     result["checks"] = checked
@@ -197,7 +220,7 @@ def main(argv=None) -> int:
             f" visible")
         return 2
     result = run_cell(os.getcwd(), args.workload, args.seed, args.seconds,
-                      bool(args.trace), torch.device("cuda", 0))
+                      bool(args.trace), cards(cell.chips))
     stop_helpers()
     # the card's name and power limit, read once the window has closed
     result["device"]["card"] = card_line()

@@ -90,11 +90,11 @@ def recording(seen: dict):
 
 
 def run_cell(root: str, workload: str, seed: int, seconds: float,
-             trace: bool, device) -> dict:
+             trace: bool, devices) -> dict:
     """run.run_cell's result with what the window's spans read."""
     seen = {}
     with recording(seen):
-        result = run.run_cell(root, workload, seed, seconds, trace, device)
+        result = run.run_cell(root, workload, seed, seconds, trace, devices)
     records, _, window_s, tracer = seen["window"]
     tr = tracer.trace()
     r = run.Run(seen["loop"], records, window_s, None, tr)
@@ -143,7 +143,7 @@ def main(argv=None) -> int:
         run.say(f"{args.workload} needs {cell.chips} CUDA device(s)")
         return 2
     result = run_cell(os.getcwd(), args.workload, args.seed, args.seconds,
-                      bool(args.trace), torch.device("cuda", 0))
+                      bool(args.trace), run.cards(cell.chips))
     run.stop_helpers()
     result["device"]["card"] = run.card_line()
     run.say(result["device"]["card"])

@@ -75,19 +75,6 @@ def per_request(run, kind: str, names, within=None, scale=1e3):
     return scale * tree.seconds(names, ROOTS[kind], within) / n
 
 
-def idle_gaps(trace) -> list:
-    """(start, end) of every stretch of the window in which no operation
-    ran on the device, in order (seconds on the host's clock)."""
-    gaps, t = [], trace.window[0]
-    for s, e in trace.intervals:
-        if s > t:
-            gaps.append((t, s))
-        t = max(t, e)
-    if t < trace.window[1]:
-        gaps.append((t, trace.window[1]))
-    return gaps
-
-
 def innermost(spans) -> list:
     """(start, end, name) pieces, in order and in seconds, of the time the
     spans cover, each named after the innermost span open then: the one
@@ -109,44 +96,52 @@ def innermost(spans) -> list:
 
 
 def idle_by_span(trace, spans) -> list:
-    """Idle device seconds by the innermost program span open then, and
-    "between requests" outside every span: [name, seconds], most first.
-    The parts sum to the window's idle seconds."""
+    """The average card's idle seconds by the innermost program span open
+    then, and "between requests" outside every span: [name, seconds], most
+    first. Each card's idle stretches count divided by the card count, so
+    the parts sum to the window's idle seconds, window_s - busy_s."""
     pieces = innermost(spans)
     out = defaultdict(float)
-    j = 0
-    for g0, g1 in idle_gaps(trace):
-        covered = 0.0
-        while j < len(pieces) and pieces[j][1] <= g0:
-            j += 1
-        k = j
-        while k < len(pieces) and pieces[k][0] < g1:
-            s, e, name = pieces[k]
-            ov = min(e, g1) - max(s, g0)
-            if ov > 0:
-                out[name] += ov
-                covered += ov
-            k += 1
-        out["between requests"] += (g1 - g0) - covered
+    card_gaps = trace.idle_gaps()
+    n = len(card_gaps)
+    for idle in card_gaps:
+        j = 0
+        for g0, g1 in idle:
+            covered = 0.0
+            while j < len(pieces) and pieces[j][1] <= g0:
+                j += 1
+            k = j
+            while k < len(pieces) and pieces[k][0] < g1:
+                s, e, name = pieces[k]
+                ov = min(e, g1) - max(s, g0)
+                if ov > 0:
+                    out[name] += ov / n
+                    covered += ov
+                k += 1
+            out["between requests"] += ((g1 - g0) - covered) / n
     return sorted(([k, v] for k, v in out.items() if v > 0),
                   key=lambda x: -x[1])
 
 
 def busy_outside_roots(trace, spans) -> float:
-    """Device-busy seconds outside every request root (a span without a
-    parent, host.gc apart): near 0 when spans and device operations share
-    one clock and every launch comes from a request."""
+    """The average card's busy seconds outside every request root (a span
+    without a parent, host.gc apart): near 0 when spans and device
+    operations share one clock and every launch comes from a request."""
     roots = sorted((NS * s.start, NS * s.end) for s in spans
                    if s.parent == 0 and s.name != "host.gc")
-    inside, j = 0.0, 0
-    for b0, b1 in trace.intervals:
-        while j < len(roots) and roots[j][1] <= b0:
-            j += 1
-        k = j
-        while k < len(roots) and roots[k][0] < b1:
-            inside += max(0.0, min(b1, roots[k][1]) - max(b0, roots[k][0]))
-            k += 1
-    return trace.busy_s - inside
+    cards = trace.card_intervals
+    inside = 0.0
+    for intervals in cards:
+        j = 0
+        for b0, b1 in intervals:
+            while j < len(roots) and roots[j][1] <= b0:
+                j += 1
+            k = j
+            while k < len(roots) and roots[k][0] < b1:
+                inside += max(0.0, min(b1, roots[k][1])
+                              - max(b0, roots[k][0]))
+                k += 1
+    return trace.busy_s - inside / len(cards)
 
 
 def span_seconds(spans) -> dict:

@@ -3,9 +3,12 @@ files it names, found by name.
 
 - a configuration: portbench/configs/<config>.json (the deployment, as run),
   <config>.py beside it (the program's side: the circuit, a transaction's
-  witness, the service's calls) and <config>_ref.py (the plain reference:
-  a transaction drawn from the traffic's stream, and the statement it
-  proves);
+  witness, the service's calls and, optionally, prover(dpk, devices), what
+  serves its prove and batch traffic on the cell's cards: an object with
+  prove, prove_batch, timings and close, as portbench/loops.py sets out;
+  without it, one card's Prover) and <config>_ref.py (the plain
+  reference: a transaction drawn from the traffic's stream, and the
+  statement it proves);
 - a traffic mix: portbench/traffic/<traffic>.json, whose "kind" names the
   loop of portbench/loops.py that drives it and whose other keys are that
   loop's parameters;

@@ -22,7 +22,7 @@ SEED = 2**31 + 811
     ("chain.batch2", "half_batch", "rejected"),
 ])
 def test_planted_fault_is_caught(checkout, workload, plant, catches):
-    res = run.run_cell(checkout, workload, SEED, 0.5, False, "cpu",
+    res = run.run_cell(checkout, workload, SEED, 0.5, False, ["cpu"],
                        plant=control.PLANTS[plant])
     assert res["correct"] is False
     assert res["checks"][catches]["value"] > res["checks"][catches]["limit"]

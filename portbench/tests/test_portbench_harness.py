@@ -43,7 +43,7 @@ def in_process(root, workload, seconds, trace_on=False):
             run.Tracer = Fake
         if __name__ == "__main__":
             res = run.run_cell({root!r}, {workload!r}, {SEED}, {seconds},
-                               {trace_on!r}, "cpu")
+                               {trace_on!r}, ["cpu"])
             print(json.dumps({{"result": res,
                               "modules": sorted({{m.split(".")[0]
                                                  for m in sys.modules}})}}))

@@ -41,7 +41,7 @@ def spanrun_in_process(root, workload, seconds, trace_on):
             spanrun.DriftTracer = Fake
         if __name__ == "__main__":
             res = spanrun.run_cell({root!r}, {workload!r}, {SEED},
-                                   {seconds}, {trace_on!r}, "cpu")
+                                   {seconds}, {trace_on!r}, ["cpu"])
             print(json.dumps({{"result": res,
                               "modules": sorted({{m.split(".")[0]
                                                  for m in sys.modules}})}}))
